@@ -1,0 +1,87 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package, and the
+launcher's command line is checked without building a model."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "repro"
+            or name.startswith("repro.") or name.startswith("jaxlib"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_launcher_no_reduced_picks_published_config():
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--no-reduced"])
+    cfg = serve.arch_config(args)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab, cfg.param_dtype) == \
+        (22, 2048, 32, 4, 5632, 32000, "bfloat16")
+    assert args.device == "cuda"
+    assert serve.arch_config(serve.parse_args([])).n_layers == 2
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--arrival-rate", "0.5"], "A6b"),
+    (["--trace", "t.jsonl"], "A6b"),
+    (["--chaos-seed", "3"], "A6b"),
+    (["--slo", "10"], "A6b"),
+    (["--num-kv-splits", "4"], "B4"),
+    (["--kv-shards", "2"], "A8"),
+])
+def test_launcher_names_the_roadmap_item_of_unported_flags(argv, item):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=item):
+        serve.parse_args(argv)
+
+
+def test_entry_points_refuse_a_missing_card():
+    import torch
+
+    from repro_torch import device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve("cuda")
