@@ -11,7 +11,11 @@ Phases (any failure exits non-zero before the final line):
    serving path's shapes (full tinyllama-1.1b, launcher defaults): f32 with
    TF32 off at 1e-5, bf16 queries at 4e-2, ragged lengths, a dead row,
    appends at 0 and at tile edges, tile counts identical, the pool step
-   bit-exact on a 4-port mix;
+   bit-exact on a 4-port mix. The split-KV pair (stage 1 + stage 2) is held
+   against its plain version at the long-context shapes (caches
+   [4, 2048, 4, 64], seq_tile 64, num_kv_splits 2, 4, 8), and its caches
+   and tile counts against the serial kernel's; num_kv_splits=1 launches
+   the serial kernel only;
 3. serve 4 requests x 8 new tokens of tinyllama-1.1b at full width (bf16,
    as published; random weights from a fixed seed) through
    ``repro_torch.launch.serve`` and check that the path went through the
@@ -21,14 +25,23 @@ Phases (any failure exits non-zero before the final line):
    held against its plain version once more and timed (CUDA events over a
    queue of launches, median of batches) beside the plain version, the
    one-call PyTorch yardstick and the bound from bytes and operations;
-4. check that greedy tokens are identical between the fused kernels and
-   the two-pass reference at the same full width in f32 (TF32 off);
-5. print the kernel table as JSON, the card's name and power limit, and
+4. serve the long-context split-KV path the same way: 4 prompts of
+   1500-2000 tokens replayed from a trace (``--max-len 2048
+   --chunk-tokens 128 --num-kv-splits 8``), split launches = 22 x decode
+   cycles, serial decode launches 0; on the path's decode call time the
+   serial kernel and the split pair at 2, 4 and 8 splits;
+5. check that greedy tokens are identical between the fused kernels and
+   the two-pass reference, and between split and serial decode on a
+   long-prompt trace, at the same full width in f32 (TF32 off);
+6. serve an open-loop Poisson schedule at full width in f32, fault-free
+   and under the seeded chaos plan 23: every invariant audit clean, every
+   request served or shed exactly once, survivors' tokens identical to the
+   fault-free run;
+7. print the kernel table as JSON, the card's name and power limit, and
    finally ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,9 +56,14 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores: the
                                     # kernels' arithmetic is f32 FMA
 F32_TOL, BF16_TOL = 1e-5, 4e-2
+SPLITS = (2, 4, 8)                  # the long-context sweep
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "kv_decode_append_attend": ("src/repro_torch/csrc/kv_multiport.cu",
                                 "src/repro/kernels/kv_multiport.py:92"),
+    "kv_decode_split_partial": ("src/repro_torch/csrc/kv_multiport_split.cu",
+                                "src/repro/kernels/kv_multiport.py:180"),
+    "kv_decode_split_combine": ("src/repro_torch/csrc/kv_multiport_split.cu",
+                                "src/repro/kernels/kv_multiport.py:294"),
     "kv_chunk_append_attend": ("src/repro_torch/csrc/kv_prefill_chunk.cu",
                                "src/repro/kernels/kv_prefill_chunk.py:55"),
     "multiport_sram_step": ("src/repro_torch/csrc/multiport_sram.cu",
@@ -174,6 +192,97 @@ def check_decode(dev, gen) -> dict:
     return errs
 
 
+def _split_agree(args, kw, ns: int) -> tuple[float, float]:
+    """The split pair, its plain version and the serial kernel on copies
+    of the same inputs: caches and tile counts identical across the three,
+    the split call launching the split pair only. Returns the largest
+    output difference to the plain split version and to the serial
+    kernel."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    from repro_torch.kernels import launch_counts
+    a, p, one = _clones(args), _clones(args), _clones(args)
+    before = launch_counts()
+    o, _, _, t = kvmp.fused_append_attend(*a, num_kv_splits=ns,
+                                          return_tiles=True, **kw)
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    want = {k: 0 for k in ran}
+    want.update(kv_decode_split_partial=1, kv_decode_split_combine=1)
+    if ran != want:
+        raise AssertionError(f"num_kv_splits={ns} launched {ran}")
+    tile, n = kvmp.launch_geometry(a[1].shape[1], kw.get("seq_tile", 128),
+                                   kw.get("live_len"),
+                                   kw.get("dynamic_grid", False))
+    o_p, t_p = kvmp.fused_append_attend_split_plain(
+        *p, seq_tile=tile, n_tiles=n, length_mask=kw.get("length_mask", True),
+        num_kv_splits=ns)
+    o_1, _, _, t_1 = kvmp.fused_append_attend(*one, return_tiles=True, **kw)
+    torch.cuda.synchronize()
+    for other in (p, one):
+        if not (torch.equal(a[1], other[1]) and torch.equal(a[2], other[2])):
+            raise AssertionError(f"split {ns}: cache update differs")
+    if not (torch.equal(t, t_p) and torch.equal(t, t_1)):
+        raise AssertionError(f"split {ns}: tiles {t.tolist()} != "
+                             f"{t_p.tolist()} / {t_1.tolist()}")
+    return _err(o, o_p), _err(o, o_1)
+
+
+def _combine_agree(acc, stats, dtype, hkv: int) -> float:
+    """Stage 2 alone against its plain version on the same partials."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    out = kvmp.split_combine(acc, stats, dtype, hkv)
+    out_p = kvmp.split_combine_plain(acc, stats, dtype)
+    torch.cuda.synchronize()
+    return _err(out, out_p)
+
+
+def check_split(dev, gen) -> dict:
+    """Long-context shapes: full tinyllama heads, caches [4, 2048, 4, 64]
+    f32, seq_tile 64 (the launcher's), the engine's dynamic grid."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    from repro_torch.kernels import launch_counts
+    hkv, g, d, s, tile = 4, 8, 64, 2048, 64
+
+    def case(lens, qdt):
+        b = len(lens)
+        rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+        return (rnd(b, hkv * g, d).to(qdt), rnd(b, s, hkv, d),
+                rnd(b, s, hkv, d), rnd(b, hkv, d), rnd(b, hkv, d),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    # a dead row, an append at 0, rows shorter than one split, the tile
+    # edges 63/64/65 and the last position
+    lens_sets = ([-1, 0, 100, s - 1], [tile - 1, tile, tile + 1, 1500])
+    kw = dict(seq_tile=tile, dynamic_grid=True)
+    errs = {"f32": 0.0, "f32_vs_serial": 0.0, "bf16": 0.0, "combine": 0.0}
+    for lens in lens_sets:
+        for ns in SPLITS:
+            e_p, e_1 = _split_agree(case(lens, torch.float32), kw, ns)
+            errs["f32"] = max(errs["f32"], e_p)
+            errs["f32_vs_serial"] = max(errs["f32_vs_serial"], e_1)
+            e_p, _ = _split_agree(case(lens, torch.bfloat16), kw, ns)
+            errs["bf16"] = max(errs["bf16"], e_p)
+            args = case(lens, torch.float32)
+            acc, st, _ = kvmp.split_partials(
+                *args, seq_tile=tile, n_tiles=s // tile, length_mask=True,
+                num_kv_splits=ns)
+            errs["combine"] = max(errs["combine"],
+                                  _combine_agree(acc, st, torch.float32, hkv))
+    e_p, e_1 = _split_agree(case(lens_sets[0], torch.float32),
+                            dict(seq_tile=tile, length_mask=False), 4)
+    errs["f32"] = max(errs["f32"], e_p)
+    errs["f32_vs_serial"] = max(errs["f32_vs_serial"], e_1)
+    if (max(errs["f32"], errs["f32_vs_serial"], errs["combine"]) > F32_TOL
+            or errs["bf16"] > BF16_TOL):
+        raise AssertionError(f"split-KV kernels disagree: {errs}")
+    before = launch_counts()
+    kvmp.fused_append_attend(*case(lens_sets[0], torch.float32),
+                             num_kv_splits=1, **kw)
+    ran = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+    if ran != {"kv_decode_append_attend": 1}:
+        raise AssertionError(f"num_kv_splits=1 launched {ran}")
+    return errs
+
+
 def check_chunk(dev, gen) -> dict:
     hkv, g, d, s, c, tile = 4, 8, 64, 128, 16, 64
 
@@ -262,45 +371,103 @@ class MainPathCapture:
         return max(self.calls[name].values(), key=lambda s: s[0])[1]
 
 
-def serve_full_width() -> tuple:
+def serve_path(argv: list) -> tuple:
+    """Drive one serving path through the launcher with every launch count
+    set to 0 just before it and read just after it. Returns (engine,
+    chaos harness or None, launch counts, the captured kernel calls)."""
     from repro_torch.kernels import kv_multiport as kvmp
     from repro_torch.kernels import kv_prefill_chunk as kvpc
     from repro_torch.kernels import launch_counts, multiport_sram as mps
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.launch import serve
-    argv = ["--arch", "tinyllama-1.1b", "--no-reduced", "--device", "cuda",
-            "--requests", "4", "--max-new", "8", "--seed", "0"]
     cap = MainPathCapture()
-    cap.hook(kvmp, "fused_append_attend", "kv_decode_append_attend")
-    cap.hook(kvpc, "fused_chunk_append_attend", "kv_chunk_append_attend")
-    cap.hook(mps, "multiport_sram_step", "multiport_sram_step")
+    cap.hook(kvmp, "fused_append_attend", "decode")
+    cap.hook(kvpc, "fused_chunk_append_attend", "chunk")
+    cap.hook(mps, "multiport_sram_step", "pool")
     try:
         reset_launch_counts()
-        eng = serve.main(argv)
+        eng, harness = serve.run(serve.parse_args(argv))
         torch.cuda.synchronize()
         counts = launch_counts()
     finally:
         cap.restore()
+    return eng, harness, counts, cap
+
+
+def expect_launches(eng, counts: dict) -> None:
+    """The path went through its kernels: one decode launch (the serial
+    kernel, or the split pair) per layer per decode cycle, one chunk
+    launch per layer per prefill cycle, one pool step per traversal."""
     L = eng.cfg.n_layers
-    want = {"kv_decode_append_attend": L * eng.decode_steps,
+    dec = L * eng.decode_steps
+    split = eng.num_kv_splits > 1
+    want = {"kv_decode_append_attend": 0 if split else dec,
+            "kv_decode_split_partial": dec if split else 0,
+            "kv_decode_split_combine": dec if split else 0,
             "kv_chunk_append_attend": L * eng.prefill_steps,
             "multiport_sram_step": eng.pool.traversals}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    if min(want.values()) == 0:
+    if not (dec and eng.prefill_steps and eng.pool.traversals):
         raise AssertionError(f"a kernel of the path never ran: {counts}")
-    done = eng.finished
-    if len(done) != 4 or any(len(r.generated) != 8 or
-                             not all(0 <= t < eng.cfg.vocab
-                                     for t in r.generated) for r in done):
-        raise AssertionError("serve run did not produce 4 x 8 valid tokens")
-    if eng.pool.utilization != 0.0 or float(eng.pool.storage.abs().max()):
-        raise AssertionError("pool not drained and scrubbed after the run")
     print(f"serve: launch counters {counts} match {L} x {eng.decode_steps} "
           f"decode cycles, {L} x {eng.prefill_steps} prefill cycles, "
           f"{eng.pool.traversals} pool traversals")
-    prompts = [r.prompt for r in sorted(done, key=lambda r: r.rid)]
-    return counts, prompts, cap
+
+
+def expect_served(eng, n: int, max_new: int) -> None:
+    done = eng.finished
+    if len(done) != n or any(len(r.generated) != max_new or
+                             not all(0 <= t < eng.cfg.vocab
+                                     for t in r.generated) for r in done):
+        raise AssertionError(f"serve run did not produce {n} x {max_new} "
+                             f"valid tokens")
+    if eng.pool.utilization != 0.0 or float(eng.pool.storage.abs().max()):
+        raise AssertionError("pool not drained and scrubbed after the run")
+
+
+def _tokens(eng) -> dict:
+    return {r.rid: tuple(r.generated) for r in eng.finished}
+
+
+FULL = ["--arch", "tinyllama-1.1b", "--no-reduced", "--device", "cuda"]
+
+
+def serve_full_width() -> tuple:
+    eng, _, counts, cap = serve_path(FULL + ["--requests", "4", "--max-new",
+                                             "8", "--seed", "0"])
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    return counts, cap
+
+
+def write_long_trace(path: Path, lo: int, hi: int, seed: int) -> None:
+    """4 arrivals at ticks 0-3, prompts of lo..hi-1 tokens over the served
+    config's vocabulary, 8 new tokens each."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serve import traffic
+    vocab = serve.arch_config(serve.parse_args(FULL)).vocab
+    rng = np.random.default_rng(seed)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    traffic.write_trace(str(path), [
+        traffic.Arrival(arrival_tick=i, prompt=tuple(
+            int(t) for t in rng.integers(0, vocab, int(rng.integers(lo, hi)))),
+            max_new=8, scenario="long-context") for i in range(4)])
+
+
+LONG = ["--max-len", "2048", "--max-slots", "4", "--chunk-tokens", "128"]
+
+
+def serve_long_context() -> tuple:
+    path = ROOT / "build" / "chip_smoke" / "long_2k.jsonl"
+    write_long_trace(path, 1500, 2001, seed=0)
+    eng, _, counts, cap = serve_path(FULL + LONG + [
+        "--num-kv-splits", "8", "--trace", str(path)])
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    return counts, cap
 
 
 def _sdpa(q, k, v, mask):
@@ -309,10 +476,20 @@ def _sdpa(q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def _decode_library_ms(args) -> float:
+    """The one-call PyTorch yardstick on a decode call's inputs: SDPA over
+    the same keys, attention alone (no append)."""
+    q, ck, cv, _, _, ln = args
+    kpos = torch.arange(ck.shape[1], device=q.device)
+    mask = (kpos[None] <= ln[:, None].long())[:, None, None, :]
+    qf, kt, vt = q.float()[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
+    return _ms(lambda: _sdpa(qf, kt, vt, mask))
+
+
 def time_decode(args, kw) -> dict:
     from repro_torch.kernels import kv_multiport as kvmp
-    q, ck, cv, nk, nv, ln = args
-    b, s, hkv, d = ck.shape
+    q, ck, ln = args[0], args[1], args[5]
+    s, d = ck.shape[1], ck.shape[3]
     h = q.shape[1]
     tile, n = kvmp.launch_geometry(s, kw.get("seq_tile", 128),
                                    kw.get("live_len"),
@@ -322,24 +499,82 @@ def time_decode(args, kw) -> dict:
     plain_ms = _ms(lambda: kvmp.fused_append_attend_plain(
         *args, seq_tile=tile, n_tiles=n,
         length_mask=kw.get("length_mask", True)))
-    kpos = torch.arange(s, device=q.device)
-    mask = (kpos[None] <= ln[:, None].long())[:, None, None, :]
-    qf, kt, vt = q.float()[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
-    lib_ms = _ms(lambda: _sdpa(qf, kt, vt, mask))
-    live = [p for p in ln.tolist() if p >= 0]
-    keys = sum(min(p + 1, n * tile, s) for p in live)
-    new = sum(1 for p in live if p < min(n * tile, s))
-    ce = ck.element_size()
-    nbytes = (2 * q.numel() * q.element_size()         # q read, out written
-              + 2 * (keys - new) * hkv * d * ce        # cached K,V read
-              + 2 * new * hkv * d * (nk.element_size() + ce)  # new K,V in
-              + 2 * 4 * b)                             # lens, tiles
+    lib_ms = _decode_library_ms(args)
+    nbytes, keys = _decode_bytes(args, n * tile)
     bound, by = _bound_ms(nbytes, 4 * h * d * keys)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "library": "scaled_dot_product_attention (attend only)",
             "shape": f"q {tuple(q.shape)} {q.dtype}, caches {tuple(ck.shape)}"
                      f" {ck.dtype}, lens {ln.tolist()}"}
+
+
+def _decode_bytes(args, n_tiles_x_tile: int) -> tuple[int, int]:
+    """(bytes the decode function must move, keys it attends over): q read
+    and the output written, each live cached K/V row read once, the new
+    K/V read and written once, lens and tile counts."""
+    q, ck, _, nk, _, ln = args
+    b, s, hkv, d = ck.shape
+    live = [p for p in ln.tolist() if p >= 0]
+    keys = sum(min(p + 1, n_tiles_x_tile, s) for p in live)
+    new = sum(1 for p in live if p < min(n_tiles_x_tile, s))
+    ce = ck.element_size()
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * (keys - new) * hkv * d * ce
+              + 2 * new * hkv * d * (nk.element_size() + ce)
+              + 2 * 4 * b)
+    return nbytes, keys
+
+
+def time_long_decode(args, kw) -> tuple:
+    """The serial kernel and the split pair at 2, 4 and 8 splits on the
+    long-context path's decode call, and the path's own split count stage
+    by stage. Returns (partial row, combine row, sweep line)."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    q, ck, ln = args[0], args[1], args[5]
+    b, s, hkv, d = ck.shape
+    h = q.shape[1]
+    ns = kw["num_kv_splits"]
+    base = {k: v for k, v in kw.items() if k != "num_kv_splits"}
+    tile, n = kvmp.launch_geometry(s, base.get("seq_tile", 128),
+                                   base.get("live_len"),
+                                   base.get("dynamic_grid", False))
+    err_pair = max(max(_split_agree(args, base, k)) for k in SPLITS)
+    nbytes, keys = _decode_bytes(args, n * tile)
+    flops = 4 * h * d * keys
+    serial_ms = _ms(lambda: kvmp.fused_append_attend(*args, **base))
+    pair_ms = {k: _ms(lambda k=k: kvmp.fused_append_attend(
+        *args, num_kv_splits=k, **base)) for k in SPLITS}
+    skw = dict(seq_tile=tile, n_tiles=n,
+               length_mask=base.get("length_mask", True), num_kv_splits=ns)
+    partial_ms = _ms(lambda: kvmp.split_partials(*args, **skw))
+    partial_plain_ms = _ms(lambda: kvmp.split_partials_plain(*args, **skw))
+    acc, st, _ = kvmp.split_partials(*_clones(args), **skw)
+    err_combine = _combine_agree(acc, st, q.dtype, hkv)
+    combine_ms = _ms(lambda: kvmp.split_combine(acc, st, q.dtype, hkv))
+    combine_plain_ms = _ms(lambda: kvmp.split_combine_plain(acc, st, q.dtype))
+    lib_ms = _decode_library_ms(args)
+    part_bytes = b * ns * h * (d + 2) * 4
+    out_bytes = q.numel() * q.element_size()
+    serial_bound, _ = _bound_ms(nbytes, flops)
+    p_bound, p_by = _bound_ms(nbytes - out_bytes + part_bytes, flops)
+    c_bound, c_by = _bound_ms(part_bytes + out_bytes, 6 * b * ns * h * d)
+    shape = (f"q {tuple(q.shape)} {q.dtype}, caches {tuple(ck.shape)} "
+             f"{ck.dtype}, lens {ln.tolist()}, {ns} splits")
+    sweep = (f"long-context decode [{shape}]: serial kernel {serial_ms:.5f} "
+             f"ms (bound {serial_bound:.6f} ms, bytes); split pair "
+             + ", ".join(f"ns={k} {v:.5f} ms" for k, v in pair_ms.items())
+             + f"; SDPA (attend only) {lib_ms:.5f} ms")
+    partial = {"max_abs_err": err_pair, "ms": partial_ms,
+               "plain_ms": partial_plain_ms, "bound_ms": p_bound,
+               "bound_by": p_by, "library_ms": lib_ms,
+               "library": "scaled_dot_product_attention (attend only)",
+               "shape": shape}
+    combine = {"max_abs_err": err_combine, "ms": combine_ms,
+               "plain_ms": combine_plain_ms, "bound_ms": c_bound,
+               "bound_by": c_by, "library_ms": None,
+               "library": "no single PyTorch call", "shape": shape}
+    return partial, combine, sweep
 
 
 def time_chunk(args, kw) -> dict:
@@ -417,31 +652,79 @@ def time_pool(args, kw) -> dict:
                      f"{roles} (0=R, 1=W), Q {addr.shape[1]}, lanes on {on}"}
 
 
-def fused_equals_reference(prompts) -> None:
-    from repro_torch.configs import registry
-    from repro_torch.models import init_params
-    from repro_torch.serve.engine import MultiPortEngine
-    cfg = dataclasses.replace(registry.get("tinyllama-1.1b"),
-                              param_dtype="float32", compute_dtype="float32")
-    dev = torch.device("cuda")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
+F32 = FULL + ["--dtype", "float32"]
+
+
+def fused_equals_reference() -> None:
+    """The short path's requests in f32: fused kernels == two-pass
+    reference."""
+    from repro_torch.launch import serve
     toks = {}
     for mode in ("pallas", "reference"):
         t0 = time.perf_counter()
-        eng = MultiPortEngine(params, cfg, slots=4, max_slots=64, max_len=128,
-                              chunk_tokens=16, seq_tile=64, kernel_mode=mode,
-                              prefix_cache=True, device=dev)
-        reqs = [eng.submit(p, max_new=8) for p in prompts]
-        eng.run()
-        toks[mode] = [r.generated for r in reqs]
+        eng = serve.main(F32 + ["--requests", "4", "--max-new", "8",
+                                "--seed", "0", "--kernel-mode", mode])
+        toks[mode] = _tokens(eng)
         print(f"f32 full width, kernel_mode={mode}: {eng.cycles} cycles, "
               f"{eng.pool.traversals} pool traversals, "
               f"{time.perf_counter() - t0:.2f}s")
     if toks["pallas"] != toks["reference"]:
         raise AssertionError(f"fused and reference tokens differ: {toks}")
     print(f"f32 token identity fused == reference over "
-          f"{sum(map(len, toks['pallas']))} greedy tokens")
+          f"{sum(map(len, toks['pallas'].values()))} greedy tokens")
+
+
+def split_equals_serial() -> None:
+    """A long-prompt trace in f32: split decode == serial decode."""
+    from repro_torch.launch import serve
+    path = ROOT / "build" / "chip_smoke" / "long_1k.jsonl"
+    write_long_trace(path, 500, 1001, seed=1)
+    toks = {}
+    for ns in (1, 8):
+        t0 = time.perf_counter()
+        eng = serve.main(F32 + ["--max-len", "1024", "--max-slots", "4",
+                                "--chunk-tokens", "128", "--trace", str(path),
+                                "--num-kv-splits", str(ns)])
+        expect_served(eng, 4, 8)
+        toks[ns] = _tokens(eng)
+        print(f"f32 long prompts, num_kv_splits={ns}: {eng.cycles} cycles, "
+              f"{time.perf_counter() - t0:.2f}s")
+    if toks[1] != toks[8]:
+        raise AssertionError(f"split and serial tokens differ: {toks}")
+    print(f"f32 token identity split == serial over "
+          f"{sum(map(len, toks[1].values()))} greedy tokens")
+
+
+def chaos_open_loop() -> None:
+    """An open-loop Poisson schedule, fault-free and under chaos plan 23:
+    clean audits, everyone accounted for once, survivors unchanged."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.chaos import KINDS, check_invariants
+    argv = F32 + ["--arrival-rate", "0.8", "--requests", "10", "--seed", "0"]
+    ref, _ = serve.run(serve.parse_args(argv))
+    eng, harness = serve.run(serve.parse_args(argv + ["--chaos-seed", "23"]))
+    ref_toks = _tokens(ref)
+    if len(ref_toks) != 10 or ref.shed:
+        raise AssertionError("the fault-free run did not serve every request")
+    if harness.invariant_checks < len(harness.plan.faults) + 1:
+        raise AssertionError(f"only {harness.invariant_checks} audits ran")
+    check_invariants(eng)
+    served = {r.rid for r in eng.finished}
+    shed = {r.rid for r in eng.shed}
+    if served & shed or served | shed != set(ref_toks):
+        raise AssertionError(f"requests not accounted for once: served "
+                             f"{sorted(served)}, shed {sorted(shed)}")
+    survivors = [r for r in eng.finished
+                 if not r.cancelled and r.shed_reason is None]
+    bad = [r.rid for r in survivors if tuple(r.generated) != ref_toks[r.rid]]
+    if not survivors or bad:
+        raise AssertionError(f"chaos survivors differ from the fault-free "
+                             f"run: {bad}")
+    kinds = [i["kind"] for i in harness.injected if i["kind"] in KINDS]
+    print(f"chaos [seed 23]: injected {kinds}, {harness.invariant_checks} "
+          f"invariant audits clean, {len(survivors)} survivors "
+          f"token-identical, {eng.cancelled} cancelled, {len(shed)} shed, "
+          f"{eng.stalled_retirements} stalled retirements")
 
 
 def main() -> int:
@@ -469,38 +752,58 @@ def main() -> int:
     errs = {"kv_decode_append_attend": check_decode(dev, gen),
             "kv_chunk_append_attend": check_chunk(dev, gen),
             "multiport_sram_step": check_pool_step(dev, gen)}
+    split_errs = check_split(dev, gen)
+    errs["kv_decode_split_partial"] = {k: v for k, v in split_errs.items()
+                                       if k != "combine"}
+    errs["kv_decode_split_combine"] = {"combine": split_errs["combine"]}
     for name, e in errs.items():
         print(f"check {name}: agrees with its plain version {e}")
 
-    counts, prompts, cap = serve_full_width()
-    timers = {"kv_decode_append_attend": time_decode,
-              "kv_chunk_append_attend": time_chunk,
-              "multiport_sram_step": time_pool}
+    found = {}      # kernel name -> (timing row, launches on its path)
+    counts, cap = serve_full_width()
+    for name, timer, call in (("kv_decode_append_attend", time_decode,
+                               "decode"),
+                              ("kv_chunk_append_attend", time_chunk, "chunk"),
+                              ("multiport_sram_step", time_pool, "pool")):
+        found[name] = (timer(*cap.typical(call)), counts[name])
+    cap.calls.clear()
+    counts, cap = serve_long_context()
+    partial, combine, sweep = time_long_decode(*cap.typical("decode"))
+    cap.calls.clear()
+    print(sweep)
+    found["kv_decode_split_partial"] = (partial,
+                                        counts["kv_decode_split_partial"])
+    found["kv_decode_split_combine"] = (combine,
+                                        counts["kv_decode_split_combine"])
+
     rows = []
-    for name, timer in timers.items():
-        k = timer(*cap.typical(name))
+    for name, (src, replaces) in KERNELS.items():
+        k, launches = found[name]
         k["max_abs_err"] = max([k["max_abs_err"], *errs[name].values()])
-        print(f"kernel {name} on the path's typical call [{k['shape']}]: "
+        lib = ("n/a" if k["library_ms"] is None
+               else f"{k['library_ms']:.5f} ms")
+        print(f"kernel {name} on its path's typical call [{k['shape']}]: "
               f"max_abs_err {k['max_abs_err']:.3g}, kernel {k['ms']:.5f} ms, "
-              f"plain {k['plain_ms']:.5f} ms, {k['library']} "
-              f"{k['library_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
-              f"({k['bound_by']})")
-        src, rep = KERNELS[name]
+              f"plain {k['plain_ms']:.5f} ms, {k['library']} {lib}, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts[name],
+                     "replaces": replaces, "launches": launches,
                      **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}})
-    cap.calls.clear()
-    fused_equals_reference(prompts)
+
+    fused_equals_reference()
+    split_equals_serial()
+    chaos_open_loop()
 
     print("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                   for r in rows))
     print(json.dumps({"kernels": rows}))
     print(card)
+    # the run used one device, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -12,28 +12,21 @@
 // them, about one flop per byte for f32 caches — far below the card's
 // ridge point.
 //
-// Design: block (b, hk) holds its G query heads in shared memory and
-// streams its kv head's K/V through shared memory in chunks of 32 keys
-// (one key per lane). Warp w owns heads w, w+8, ...: scores are lane-local
-// dot products, the online-softmax max and sum are warp shuffles, and each
-// lane accumulates D/32 output dims in registers (f32 throughout). The W
-// port writes only the appended row, and the block is the sole writer of
-// the columns it reads; it overlays new_k/new_v on the chunk it holds in
-// shared memory, so its scores never depend on the global write landing
-// first. Contract kept from the TPU kernel: f32 accumulation,
-// alpha = exp(m_prev - m_new) guarded while m_prev is -inf, the 1e-30 floor
-// on the denominator, and a dead row (cache_len < 0) writes nothing,
-// outputs zeros and services 0 tiles. The tile count is written by the
-// kv-head-0 block.
-#include "common.cuh"
+// Design: block (b, hk) runs the shared R-port loop of decode_attend.cuh
+// over its row's keys [0, cache_len] and normalizes. The W port writes
+// only the appended row, and the block is the sole writer of the columns
+// it reads; the loop overlays new_k/new_v on the chunk it holds in shared
+// memory, so its scores never depend on the global write landing first.
+// Contract kept from the TPU kernel: f32 accumulation, alpha =
+// exp(m_prev - m_new) guarded while m_prev is -inf, the 1e-30 floor on the
+// denominator, and a dead row (cache_len < 0) writes nothing, outputs
+// zeros and services 0 tiles. The tile count is written by the kv-head-0
+// block.
+#include "decode_attend.cuh"
 
 namespace {
 
-constexpr int KC = 32;       // keys per shared-memory chunk: one per lane
-constexpr int NWARPS = 8;
-constexpr int THREADS = NWARPS * 32;
-constexpr int MAXHPW = 4;    // heads per warp: G <= 32
-constexpr int MAXDL = 4;     // dims per lane: D <= 128
+using namespace repro::decode;
 
 template <typename TQ, typename TC>
 __global__ void decode_kernel(const TQ* __restrict__ q, TC* __restrict__ ck,
@@ -47,11 +40,7 @@ __global__ void decode_kernel(const TQ* __restrict__ q, TC* __restrict__ ck,
   extern __shared__ float smem[];
   const int b = blockIdx.x, hk = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int H = Hkv * G, DP = D + 1;  // padded K/V rows: conflict-free
-  float* qs = smem;                   // [G][D]
-  float* ks = qs + G * D;             // [KC][DP]
-  float* vs = ks + KC * DP;           // [KC][DP]
-  float* ps = vs + KC * DP;           // [NWARPS][KC]
+  const int H = Hkv * G;
 
   const int p = lens[b];
   TQ* o = out + ((size_t)b * H + (size_t)hk * G) * D;
@@ -64,92 +53,23 @@ __global__ void decode_kernel(const TQ* __restrict__ q, TC* __restrict__ ck,
     tiles[b] = length_mask ? min((p + seq_tile) / seq_tile, n_tiles) : n_tiles;
 
   const int limit = min(n_tiles * seq_tile, S);  // staged positions
-  const size_t rstride = (size_t)Hkv * D;
   const TC* nkr = nk + ((size_t)b * Hkv + hk) * D;
   const TC* nvr = nv + ((size_t)b * Hkv + hk) * D;
-  // W port: the appended row lands at p, in this block's columns only
-  if (p < limit) {
-    const size_t at = ((size_t)b * S + p) * rstride + (size_t)hk * D;
-    for (int i = tid; i < D; i += THREADS) {
-      ck[at + i] = nkr[i];
-      cv[at + i] = nvr[i];
-    }
-  }
+  if (p < limit) append_row(ck, cv, nkr, nvr, b, hk, p, S, Hkv, D);
   const TQ* qb = q + ((size_t)b * H + (size_t)hk * G) * D;
-  for (int i = tid; i < G * D; i += THREADS) qs[i] = repro::to_f32(qb[i]);
-
-  float m[MAXHPW], l[MAXHPW], acc[MAXHPW][MAXDL];
-#pragma unroll
-  for (int h = 0; h < MAXHPW; ++h) {
-    m[h] = -INFINITY;
-    l[h] = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXDL; ++i) acc[h][i] = 0.f;
-  }
-  const int end = min(p + 1, limit);  // R port: keys [0, end)
-  __syncthreads();
-
-  for (int k0 = 0; k0 < end; k0 += KC) {
-    for (int i = tid; i < KC * D; i += THREADS) {
-      const int j = i / D, dd = i - j * D, pos = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (pos < end) {
-        if (pos == p) {  // W->R visibility through shared memory
-          kx = repro::to_f32(nkr[dd]);
-          vx = repro::to_f32(nvr[dd]);
-        } else {
-          const size_t at = ((size_t)b * S + pos) * rstride + (size_t)hk * D + dd;
-          kx = repro::to_f32(ck[at]);
-          vx = repro::to_f32(cv[at]);
-        }
-      }
-      ks[j * DP + dd] = kx;
-      vs[j * DP + dd] = vx;
-    }
-    __syncthreads();
-    const bool valid = k0 + lane < end;
-#pragma unroll
-    for (int h = 0; h < MAXHPW; ++h) {
-      const int g = warp + h * NWARPS;
-      if (g >= G) break;  // warp-uniform
-      float s = -INFINITY;
-      if (valid) {
-        float dot = 0.f;
-        const float* qr = qs + g * D;
-        const float* kr = ks + lane * DP;
-        for (int dd = 0; dd < D; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-        s = dot * scale;
-      }
-      const float m_new = fmaxf(m[h], repro::warp_max(s));
-      const float alpha = (m[h] == -INFINITY) ? 0.f : expf(m[h] - m_new);
-      const float pr = valid ? expf(s - m_new) : 0.f;
-      l[h] = l[h] * alpha + repro::warp_sum(pr);
-      ps[warp * KC + lane] = pr;
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < MAXDL; ++i) {
-        const int dd = lane + 32 * i;
-        if (dd < D) {
-          float a = acc[h][i] * alpha;
-          for (int j = 0; j < KC; ++j) a = fmaf(ps[warp * KC + j], vs[j * DP + dd], a);
-          acc[h][i] = a;
-        }
-      }
-      __syncwarp();
-      m[h] = m_new;
-    }
-    __syncthreads();
-  }
+  State st;
+  attend(smem, qb, ck, cv, nkr, nvr, b, hk, p, 0, min(p + 1, limit), S, Hkv,
+         G, D, scale, st);  // R port: keys [0, min(p + 1, limit))
 
 #pragma unroll
   for (int h = 0; h < MAXHPW; ++h) {
     const int g = warp + h * NWARPS;
     if (g >= G) break;
-    const float den = fmaxf(l[h], 1e-30f);
+    const float den = fmaxf(st.l[h], 1e-30f);
 #pragma unroll
     for (int i = 0; i < MAXDL; ++i) {
       const int dd = lane + 32 * i;
-      if (dd < D) o[g * D + dd] = repro::from_f32<TQ>(acc[h][i] / den);
+      if (dd < D) o[g * D + dd] = repro::from_f32<TQ>(st.acc[h][i] / den);
     }
   }
 }
@@ -159,7 +79,7 @@ int launch(void* q, void* ck, void* cv, void* nk, void* nv, void* lens,
            void* out, void* tiles, int B, int S, int Hkv, int G, int D,
            int seq_tile, int n_tiles, int length_mask, float scale,
            cudaStream_t st) {
-  const size_t smem = sizeof(float) * (G * D + 2 * KC * (D + 1) + NWARPS * KC);
+  const size_t smem = smem_bytes(G, D);
   auto kern = decode_kernel<TQ, TC>;
   cudaError_t err = repro::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
@@ -183,9 +103,7 @@ extern "C" int kv_decode_append_attend(void* q, void* ck, void* cv, void* nk,
                                        int length_mask, float scale,
                                        int q_dtype, int cache_dtype,
                                        void* stream) {
-  if (B <= 0 || Hkv <= 0 || G <= 0 || G > NWARPS * MAXHPW || D <= 0 ||
-      D > 32 * MAXDL || seq_tile <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_geometry(B, Hkv, G, D, seq_tile)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_ARGS q, ck, cv, nk, nv, lens, out, tiles, B, S, Hkv, G, D, \
                    seq_tile, n_tiles, length_mask, scale, st

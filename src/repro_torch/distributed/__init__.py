@@ -1,1 +1,2 @@
-"""Sharding geometry of the paged KV pool."""
+"""Sharding geometry of the paged KV pool, and the liveness helpers
+(heartbeats, straggler detection) the chaos harness wires in."""

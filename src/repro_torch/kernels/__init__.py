@@ -2,7 +2,8 @@
 optimizes, each beside a plain torch version of the same function:
 
   multiport_sram   — the N-port memory step (the wrapper itself)
-  kv_multiport     — fused decode append+attend over the multi-port KV cache
+  kv_multiport     — fused decode append+attend over the multi-port KV cache,
+                     serial or split-KV (partial banks + LSE combine)
   kv_prefill_chunk — fused chunked-prefill append+attend
 
 ``ops.py`` holds the public wrappers and ``ref.py`` the two-pass oracles.

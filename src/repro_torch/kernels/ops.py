@@ -60,11 +60,7 @@ def multiport_step(spec: MemorySpec, config: PortConfig,
     return storage, reads
 
 
-def _not_ported(num_kv_splits: int, mesh) -> None:
-    if num_kv_splits != 1:
-        raise NotImplementedError(
-            "split-KV decode (num_kv_splits > 1) is not ported yet — "
-            "ROADMAP item B4")
+def _not_ported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "multi-device KV (a kv mesh) is not ported yet — ROADMAP item A8")
@@ -79,10 +75,12 @@ def fused_decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len, *,
     """Scheduled-port-mix decode step (see kv_multiport.py).
 
     ``port_mix="wr"`` (a 1W+1R traversal is schedulable) runs the fused
-    append+attend kernel, updating the caches in place; ``"w+r"`` (a port
-    budget of 1) degrades to the two-pass oracle
-    ``ref.decode_attention_ref``, which returns new caches."""
-    _not_ported(num_kv_splits, mesh)
+    append+attend kernel, updating the caches in place — split over
+    ``num_kv_splits`` parallel chains plus a combine when it is > 1;
+    ``"w+r"`` (a port budget of 1) degrades to the two-pass oracle
+    ``ref.decode_attention_ref``, which returns new caches and has no
+    traversal to split (``num_kv_splits`` is ignored)."""
+    _not_ported(mesh)
     if port_mix == "w+r":
         from repro_torch.kernels import ref
         return ref.decode_attention_ref(q, cache_k, cache_v, new_k, new_v,
@@ -93,7 +91,8 @@ def fused_decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len, *,
                                     cache_len, seq_tile=seq_tile,
                                     live_len=live_len,
                                     length_mask=length_mask,
-                                    dynamic_grid=dynamic_grid)
+                                    dynamic_grid=dynamic_grid,
+                                    num_kv_splits=num_kv_splits)
 
 
 def fused_prefill_chunk_attention(q, cache_k, cache_v, new_k, new_v, offset,
@@ -103,7 +102,7 @@ def fused_prefill_chunk_attention(q, cache_k, cache_v, new_k, new_v, offset,
                                   port_mix: str = "wr"):
     """Scheduled-port-mix chunked-prefill step (see kv_prefill_chunk.py);
     ``"w+r"`` degrades to ``ref.prefill_chunk_attention_ref``."""
-    _not_ported(1, mesh)
+    _not_ported(mesh)
     if port_mix == "w+r":
         from repro_torch.kernels import ref
         return ref.prefill_chunk_attention_ref(q, cache_k, cache_v, new_k,

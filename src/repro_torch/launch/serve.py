@@ -5,12 +5,24 @@
 
 Closed loop: every request is submitted up front and the engine runs until
 all are served. ``--reduced`` (the default) serves the architecture's small
-smoke config; ``--no-reduced`` serves the published one. The weights are
-random, drawn from a fixed seed; ``--seed`` draws the prompts.
+smoke config; ``--no-reduced`` serves the published one (``--dtype
+float32`` serves it in f32). The weights are random, drawn from a fixed
+seed; ``--seed`` draws the prompts.
+
+Open loop: requests ARRIVE on a virtual-clock schedule (1 tick = 1 pool
+traversal) — seeded Poisson arrivals via ``--arrival-rate``, or a JSONL
+trace via ``--trace`` (``repro_torch.serve.traffic.write_trace``). The run
+prints TTFT / per-token percentiles in ticks, queue counters, ``--slo``
+attainment, and with ``--chaos-seed`` injects a seeded fault plan with
+invariant audits after every fault:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 0.8 \
+        --requests 10 --chaos-seed 23 --slo 40
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -20,16 +32,9 @@ from repro_torch import device as _device
 from repro_torch.configs import registry
 from repro_torch.kernels import launch_counts
 from repro_torch.models import init_params
+from repro_torch.serve import traffic
+from repro_torch.serve.chaos import ChaosHarness, FaultPlan
 from repro_torch.serve.engine import MultiPortEngine
-
-# flags of the JAX launcher whose machinery has not been ported yet, and
-# the ROADMAP item that brings each
-_NOT_PORTED = {
-    "arrival_rate": ("--arrival-rate", "A6b (open-loop traffic and chaos)"),
-    "trace": ("--trace", "A6b (open-loop traffic and chaos)"),
-    "chaos_seed": ("--chaos-seed", "A6b (open-loop traffic and chaos)"),
-    "slo": ("--slo", "A6b (open-loop traffic and chaos)"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "serves the published one)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
+    ap.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                    help="parameter and compute dtype (default: the "
+                         "config's own)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
@@ -62,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stage a bucketed live prefix instead of the full "
                          "padded capacity")
     ap.add_argument("--num-kv-splits", type=int, default=1,
-                    help="split-KV decode (only 1 is ported)")
+                    help="split-KV decode: run each sequence's decode "
+                         "traversal as this many grid-parallel partial-"
+                         "attention chains plus an LSE combine (1 = the "
+                         "serial kernel; fused decode only)")
     ap.add_argument("--kv-shards", type=int, default=1,
                     help="shard the paged KV pool across devices (only 1 "
                          "is ported)")
@@ -90,13 +101,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable refcounted prefix sharing (tokens are "
                          "identical either way)")
     ap.add_argument("--arrival-rate", type=float, default=None,
-                    help="open-loop Poisson arrivals (not ported yet)")
+                    help="open-loop mode: seeded Poisson arrivals at this "
+                         "many requests per virtual tick (1 tick = 1 pool "
+                         "traversal), heavy-tailed lengths over the "
+                         "registry scenario spread, admitted FIFO as slots "
+                         "free up")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="open-loop trace replay (not ported yet)")
+                    help="open-loop mode: replay a JSONL arrival trace "
+                         "(see repro_torch.serve.traffic.write_trace)")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="fault injection (not ported yet)")
+                    help="open-loop only: inject a seeded FaultPlan "
+                         "(capacity squeezes, mid-stream cancels, delayed "
+                         "retirement) with engine/pool invariant audits "
+                         "after every fault")
     ap.add_argument("--slo", type=float, default=None, metavar="TICKS",
-                    help="open-loop p99 TTFT SLO report (not ported yet)")
+                    help="p99-TTFT SLO in virtual ticks: print attainment "
+                         "with the open-loop latency summary")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the prompts")
     return ap
@@ -105,17 +125,22 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse and validate the command line without building anything."""
     args = build_parser().parse_args(argv)
-    for key, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, key) is not None:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet — "
-                             f"ROADMAP item {item}")
-    if args.num_kv_splits != 1:
-        raise SystemExit("--num-kv-splits > 1 (split-KV decode) is not "
-                         "ported to repro_torch yet — ROADMAP item B4")
+    if args.trace is not None and args.arrival_rate is not None:
+        raise SystemExit("--trace and --arrival-rate are exclusive")
+    if args.chaos_seed is not None and not open_loop(args):
+        raise SystemExit("--chaos-seed needs open-loop mode "
+                         "(--arrival-rate or --trace)")
+    if args.num_kv_splits < 1:
+        raise SystemExit(f"--num-kv-splits must be >= 1, "
+                         f"got {args.num_kv_splits}")
     if args.kv_shards != 1:
         raise SystemExit("--kv-shards > 1 (multi-device KV) is not ported "
                          "to repro_torch yet — ROADMAP item A8")
     return args
+
+
+def open_loop(args: argparse.Namespace) -> bool:
+    return args.trace is not None or args.arrival_rate is not None
 
 
 def arch_config(args: argparse.Namespace):
@@ -123,12 +148,37 @@ def arch_config(args: argparse.Namespace):
     if cfg.family != "dense" or cfg.input_mode != "tokens":
         raise SystemExit(f"{args.arch} is a {cfg.family!r} architecture; "
                          f"repro_torch serves the dense family (ROADMAP A9)")
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
+                                  compute_dtype=args.dtype)
     return cfg
 
 
+def _arrivals(args: argparse.Namespace, cfg) -> tuple:
+    if args.trace:
+        arrivals = traffic.trace_arrivals(args.trace, vocab=cfg.vocab,
+                                          seed=args.seed)
+    else:
+        max_prompt = max(args.max_len - args.max_new, 2)
+        arrivals = traffic.poisson_arrivals(
+            args.requests, args.arrival_rate, seed=args.seed,
+            vocab=cfg.vocab, max_prompt=min(40, max_prompt),
+            max_output=args.max_new)
+    for a in arrivals:
+        if a.prompt_len + a.max_new > args.max_len:
+            raise SystemExit(f"arrival ({a.prompt_len}+{a.max_new}) exceeds "
+                             f"--max-len {args.max_len}")
+    return arrivals
+
+
 def main(argv=None) -> MultiPortEngine:
-    """Serve ``--requests`` closed-loop requests; returns the engine."""
-    args = parse_args(argv)
+    """Serve the requests; returns the engine."""
+    return run(parse_args(argv))[0]
+
+
+def run(args: argparse.Namespace) -> tuple:
+    """Serve the requests of parsed ``args``; returns (the engine, the
+    chaos harness or None)."""
     cfg = arch_config(args)
     seq_tile = (min(64, args.max_len) if args.seq_tile is None
                 else args.seq_tile)
@@ -146,6 +196,9 @@ def main(argv=None) -> MultiPortEngine:
           f"{cfg.param_dtype} on {args.device}")
     print(f"length-bounded staging buckets (seq_tile={seq_tile}, "
           f"S_max={args.max_len}, {grid}): {list(buckets)}")
+    if args.num_kv_splits > 1:
+        print(f"split-KV decode: {args.num_kv_splits} partial chains per "
+              f"sequence + LSE combine (fused decode path)")
     dev = _device.resolve(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
@@ -158,19 +211,36 @@ def main(argv=None) -> MultiPortEngine:
                           seq_tile=seq_tile,
                           length_bound=not args.no_length_bound,
                           dynamic_grid=not args.no_dynamic_grid,
+                          num_kv_splits=args.num_kv_splits,
                           schedule_mode=args.schedule_mode,
                           max_ports=args.max_ports,
                           default_ttl_ticks=args.deadline,
                           max_queue_depth=args.max_queue_depth,
                           prefix_cache=not args.no_prefix_cache,
                           device=dev)
-    rng = np.random.default_rng(args.seed)
-    for _ in range(args.requests):
-        eng.submit([int(t) for t in rng.integers(0, cfg.vocab,
-                                                 int(rng.integers(3, 10)))],
-                   max_new=args.max_new)
-    t0 = time.perf_counter()
-    done = eng.run()
+    harness = None
+    if open_loop(args):
+        arrivals = _arrivals(args, cfg)
+        print(f"open-loop: {len(arrivals)} arrivals over ticks "
+              f"[{arrivals[0].arrival_tick}, {arrivals[-1].arrival_tick}]"
+              if arrivals else "open-loop: empty schedule")
+        if args.chaos_seed is not None:
+            horizon = (arrivals[-1].arrival_tick + 1) if arrivals else 1
+            harness = ChaosHarness(
+                FaultPlan.generate(args.chaos_seed, horizon=horizon))
+        t0 = time.perf_counter()
+        traffic.drive(eng, arrivals, on_cycle=harness)
+        if harness is not None:
+            harness.finalize(eng)
+        done = eng.finished
+    else:
+        rng = np.random.default_rng(args.seed)
+        for _ in range(args.requests):
+            eng.submit([int(t) for t in
+                        rng.integers(0, cfg.vocab, int(rng.integers(3, 10)))],
+                       max_new=args.max_new)
+        t0 = time.perf_counter()
+        done = eng.run()
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
@@ -205,13 +275,59 @@ def main(argv=None) -> MultiPortEngine:
               f"/ {ps['attached_pages']} pages adopted without recompute); "
               f"copy-on-write splits {ps['cow_copies']} "
               f"({ps['cow_words']} words copied)")
-    if eng.shed:
+    if open_loop(args):
+        _open_loop_report(args, eng, harness)
+    elif eng.shed:
         print(f"overload: shed {len(eng.shed)} (deadline "
               f"{eng.shed_deadline}, queue_full {eng.shed_queue_full}, "
               f"capacity {eng.shed_capacity})")
     for r in done[:4]:
-        print(f"  req {r.rid}: prompt={r.prompt} -> {r.generated}")
-    return eng
+        print(f"  req {r.rid}: prompt={_short(r.prompt)} -> {r.generated}")
+    return eng, harness
+
+
+def _short(prompt: list) -> str:
+    if len(prompt) <= 12:
+        return str(prompt)
+    return f"[{', '.join(map(str, prompt[:8]))}, ... ({len(prompt)} tokens)]"
+
+
+def _open_loop_report(args, eng: MultiPortEngine, harness) -> None:
+    done = eng.finished
+    ttft = np.array([r.ttft_ticks for r in done if r.ttft_ticks is not None],
+                    dtype=np.float64)
+    tpot = np.array([r.tpot_ticks for r in done if r.tpot_ticks is not None],
+                    dtype=np.float64)
+    if ttft.size:
+        line = (f"latency (virtual ticks, 1 tick = 1 pool traversal): "
+                f"TTFT p50/p99 {np.percentile(ttft, 50):.1f}/"
+                f"{np.percentile(ttft, 99):.1f}")
+        if tpot.size:
+            line += (f"; per-token p50/p99 {np.percentile(tpot, 50):.2f}/"
+                     f"{np.percentile(tpot, 99):.2f}")
+        print(line)
+    print(f"queue: peak depth {eng.admission.peak_depth}, "
+          f"slot-contention cycles {eng.slot_contention_cycles}, "
+          f"evict-pressure admissions {eng.evict_pressure_admissions}, "
+          f"total ticks {eng.vclock}")
+    if eng.shed or eng.cancelled or eng.capacity_parked_cycles:
+        print(f"overload: shed {len(eng.shed)} "
+              f"(deadline {eng.shed_deadline}, queue_full "
+              f"{eng.shed_queue_full}, capacity {eng.shed_capacity}), "
+              f"capacity parked/recovered "
+              f"{eng.capacity_parked_cycles}/{eng.capacity_recoveries}, "
+              f"cancelled {eng.cancelled}")
+    if harness is not None:
+        print(f"chaos [seed {args.chaos_seed}]: "
+              f"{len(harness.injected)} actions, "
+              f"{harness.invariant_checks} invariant audits clean, "
+              f"stalled retirements {eng.stalled_retirements}, "
+              f"straggler events {harness.straggler_events}")
+    if args.slo is not None and ttft.size:
+        met = int((ttft <= args.slo).sum())
+        print(f"SLO (p99 TTFT <= {args.slo:g} ticks): "
+              f"{'MET' if np.percentile(ttft, 99) <= args.slo else 'MISSED'}"
+              f" — {met}/{ttft.size} requests within SLO")
 
 
 if __name__ == "__main__":

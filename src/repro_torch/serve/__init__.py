@@ -1,2 +1,4 @@
 """Serving: the multi-port engine (``engine.py``), its macro-cycle port
-scheduler (``scheduler.py``) and host-side admission (``admission.py``)."""
+scheduler (``scheduler.py``), host-side admission (``admission.py``),
+open-loop traffic (``traffic.py``) and the fault-injection harness
+(``chaos.py``)."""

@@ -145,12 +145,15 @@ class Request:
     arrival_cycle: int = 0
     # overload-safety state: an optional absolute admission deadline
     # (arrival + TTL, virtual ticks — expired heads are shed, never
-    # admitted), why/when the request was shed (None = served), and how
-    # many cycles it was parked retrying a full home shard
+    # admitted), why/when the request was shed (None = served), how many
+    # cycles it was parked retrying a full home shard, and whether a chaos
+    # fault cancelled it mid-stream (cancelled/shed requests are excluded
+    # from the survivor token-identity checks)
     deadline_tick: Optional[float] = None
     shed_reason: Optional[str] = None
     shed_tick: Optional[int] = None
     capacity_retries: int = 0
+    cancelled: bool = False
     admit_tick: Optional[int] = None
     admit_cycle: Optional[int] = None
     first_token_tick: Optional[int] = None
@@ -205,6 +208,13 @@ class _InFlight:
     lens: np.ndarray               # per-row pre-append cache lengths
     state: dict                    # device outputs (cache_k/cache_v)
     logits: object                 # device next-token logits
+    rids: dict = dataclasses.field(default_factory=dict)
+                                   # slot -> rid at dispatch time: retirement
+                                   # skips rows whose slot was reassigned
+                                   # while the dispatch was outstanding
+                                   # (possible when a chaos stall lets
+                                   # evict/admit run between dispatch and
+                                   # retire)
 
 
 class _DoubleBuffer:
@@ -308,13 +318,11 @@ class MultiPortEngine:
         # prefix instead.
         self.dynamic_grid = (dynamic_grid and self._fused_compute
                              and length_bound)
-        # split-KV decode is only meaningful on the fused compute (the
-        # two-pass reference has no traversal to split)
+        # split-KV decode: each row's decode traversal runs as
+        # num_kv_splits grid-parallel partial-softmax chains plus one
+        # combine — only meaningful on the fused compute (the two-pass
+        # reference has no traversal to split)
         self.num_kv_splits = num_kv_splits if self._fused_compute else 1
-        if self.num_kv_splits > 1:
-            raise NotImplementedError(
-                "split-KV decode (num_kv_splits > 1) is not ported yet — "
-                "ROADMAP item B4")
         self._stage_buckets = self.final_stage_ladder(max_len, seq_tile)
         self.stage_lens_seen: set = set()
         # padded batch rows carry the fused kernels' dead-row sentinel
@@ -369,6 +377,12 @@ class MultiPortEngine:
         self.shed_capacity = 0              # capacity-retry budget exhausted
         self.capacity_parked_cycles = 0     # cycles a head waited on pages
         self.capacity_recoveries = 0        # parked heads later admitted
+        self.cancelled = 0                  # chaos mid-stream cancellations
+        # chaos delayed-retirement state: cycles the in-flight decode must
+        # stay unretired (the host keeps admitting/prefilling/evicting but
+        # cannot dispatch new decode work until the stall drains)
+        self.retire_stall_cycles = 0
+        self.stalled_retirements = 0
         self.finished: list[Request] = []
         self.cycles = 0
         # virtual clock: pool traversals + idle macro-cycles (1 tick each);
@@ -425,11 +439,13 @@ class MultiPortEngine:
         attn_mode = "multiport" if kernel_mode == "pallas" else "reference"
         pmix = self.compute_port_mix
         tile, dyn = self.seq_tile, self.dynamic_grid
+        nsp = self.num_kv_splits
         self._decode = (
             lambda p, s, b: decode_step(p, cfg, s, b, kernel_mode=attn_mode,
                                         seq_tile=tile,
                                         length_mask=length_bound,
-                                        dynamic_grid=dyn, port_mix=pmix))
+                                        dynamic_grid=dyn,
+                                        num_kv_splits=nsp, port_mix=pmix))
         self._prefill_chunk = (
             lambda p, s, b: prefill_chunk(p, cfg, s, b, kernel_mode=attn_mode,
                                           seq_tile=tile, dynamic_grid=dyn,
@@ -510,6 +526,33 @@ class MultiPortEngine:
         else:
             raise ValueError(f"unknown shed reason: {reason!r}")
 
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request mid-stream: mark it done so the next EVICT
+        phase frees its slot and scrubs its pages through the pool's
+        normal port-D path (no bespoke teardown — cancellation IS an
+        eviction). The request lands in ``finished`` flagged
+        ``cancelled=True`` so token-identity checks exclude it. Returns
+        False when ``rid`` is not live in a slot (already finished,
+        queued, or unknown)."""
+        for r in self.slot_req:
+            if r is not None and r.rid == rid and not r.done:
+                r.cancelled = True
+                r.done = True
+                self.cancelled += 1
+                return True
+        return False
+
+    def stall_retirement(self, cycles: int) -> None:
+        """Chaos hook: delay retirement of the async-dispatched decode by
+        ``cycles`` macro-cycles. While stalled the engine keeps evicting,
+        admitting and prefilling, but the in-flight decode is neither
+        forced nor is new decode work dispatched (per-slot decode compute
+        is independent, so the stall is token-identical — only WHEN
+        results are folded back moves)."""
+        if cycles < 1:
+            raise ValueError(f"cycles must be >= 1, got {cycles}")
+        self.retire_stall_cycles += cycles
+
     def pending_work(self) -> bool:
         return bool(self.admission) or any(r is not None
                                            for r in self.slot_req)
@@ -520,6 +563,19 @@ class MultiPortEngine:
         per idle macro-cycle — the deterministic time base every latency
         stamp and SLO gate is measured in."""
         return self.pool.traversals + self.idle_ticks
+
+    def advance_idle(self, ticks: int) -> None:
+        """Fast-forward the virtual clock through a known-idle stretch
+        (the open-loop driver calls this instead of spinning status-only
+        macro-cycles while waiting for the next scheduled arrival)."""
+        if ticks < 0:
+            raise ValueError(f"ticks must be >= 0, got {ticks}")
+        self.idle_ticks += ticks
+
+    @property
+    def has_inflight(self) -> bool:
+        """True while a dispatched decode macro-cycle awaits retirement."""
+        return self._inflight is not None
 
     def flush(self) -> None:
         """Retire a trailing in-flight decode cycle (forces its device
@@ -932,7 +988,8 @@ class MultiPortEngine:
             {"inputs": torch.from_numpy(last_tokens).to(dev)})
         inflight = _InFlight(cycle=self.cycles, vclock_end=self.vclock,
                              active=list(active), row_of=row_of, lens=lens,
-                             state=st, logits=logits)
+                             state=st, logits=logits,
+                             rids={i: self.slot_req[i].rid for i in active})
         bounded = self._fused_compute and self.length_bound
         tiles, bound, crit = self._tiles_touched(
             [need_of[i] for i in active], stage_s, bounded=bounded,
@@ -945,19 +1002,24 @@ class MultiPortEngine:
         append, its token lands on the request, and finished requests get
         their latency stamps — at the virtual-clock time their cycle's
         traversals committed, not the later wall moment retirement ran."""
+        # a slot evicted (e.g. by a chaos cancel) and possibly reassigned
+        # while this dispatch was outstanding is skipped — folding the
+        # stale row back in would corrupt the new occupant
+        live = [i for i in inf.active if self.slot_req[i] is not None
+                and self.slot_req[i].rid == inf.rids.get(i)]
         # the device-to-host copy of the new tokens and of each row's
         # appended KV word is the retire point (the sync with the device)
-        rows = [inf.row_of[i] for i in inf.active]
+        rows = [inf.row_of[i] for i in live]
         dev = inf.logits.device
         js = torch.tensor(rows, dtype=torch.long, device=dev)
         ps = torch.from_numpy(inf.lens[rows].astype(np.int64)).to(dev)
         kw = inf.state["cache_k"][:, js, ps]                # [L, n, hkv, hd]
         vw = inf.state["cache_v"][:, js, ps]
         words = torch.stack([kw, vw], dim=1).permute(2, 0, 1, 3, 4)
-        words = words.reshape(len(rows), -1).float().cpu().numpy()
+        words = words.flatten(1).float().cpu().numpy()
         nxt = torch.argmax(inf.logits.float(), dim=-1).cpu().numpy()
         now_wall = time.perf_counter()
-        for n, i in enumerate(inf.active):
+        for n, i in enumerate(live):
             j = inf.row_of[i]
             r = self.slot_req[i]
             self._pending[i] = words[n]
@@ -1054,7 +1116,16 @@ class MultiPortEngine:
         while the host plans the next macro-cycle. State evolution is
         bit-identical to the synchronous loop; only the forcing point
         moved."""
-        self.flush()
+        # chaos delayed retirement: while stalled the in-flight decode is
+        # NOT forced this cycle (and no new decode work is collected or
+        # dispatched below) — evict/admit/prefill keep running
+        stalled = self.retire_stall_cycles > 0
+        if stalled:
+            self.retire_stall_cycles -= 1
+            if self._inflight is not None:
+                self.stalled_retirements += 1
+        else:
+            self.flush()
         # deadline shedding happens at the HEAD of the cycle, before any
         # admission decision: expired heads never reach a slot, a page, or
         # a pool traversal (head-only — see AdmissionQueue)
@@ -1082,8 +1153,9 @@ class MultiPortEngine:
             elif port == PREFILL:
                 state["admits"] = self._collect_prefill()
             elif port == DECODE:
-                (state["appends"], state["active"],
-                 state["reads"]) = self._collect_decode()
+                if not stalled:
+                    (state["appends"], state["active"],
+                     state["reads"]) = self._collect_decode()
             else:
                 state["status"] = self._service_status()
             return state

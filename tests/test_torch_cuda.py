@@ -121,3 +121,75 @@ def test_pool_step_kernel_on_card(rng, cuda_device, dt, roles):
     r_p = mps.multiport_sram_step_plain(st_p, addr_t, data, mask_t,
                                         roles=roles)
     assert torch.equal(storage, st_p) and torch.equal(r_k, r_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [("f32", "f32"), ("bf16", "f32")])
+@pytest.mark.parametrize("ns", [2, 3, 8])
+@pytest.mark.parametrize("mode", [dict(), dict(length_mask=False),
+                                  dict(live_len=96)])
+def test_split_kv_kernels_on_card(rng, cuda_device, qdt, cdt, ns, mode):
+    """Split-KV stage 1 + stage 2 against the plain split version: ragged
+    lengths, a dead row, a row shorter than one split, appends at tile
+    edges; caches and tile counts identical to the serial kernel."""
+    s, hkv, g, d, tile = 128, 4, 8, 64, 16
+    lens = [0, 3, tile - 1, tile, tile + 1, -1, 90, s - 1]
+    if "live_len" in mode:
+        lens = [min(x, 95) for x in lens]
+    b = len(lens)
+    q = _normal(rng, cuda_device, qdt, b, hkv * g, d)
+    ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, cdt, b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    ck_p, cv_p, ck_1, cv_1 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    before = launch_counts()
+    o, _, _, t = kvmp.fused_append_attend(q, ck, cv, nk, nv, ln,
+                                          seq_tile=tile, num_kv_splits=ns,
+                                          return_tiles=True, **mode)
+    after = launch_counts()
+    assert after["kv_decode_split_partial"] == \
+        before["kv_decode_split_partial"] + 1
+    assert after["kv_decode_split_combine"] == \
+        before["kv_decode_split_combine"] + 1
+    assert after["kv_decode_append_attend"] == \
+        before["kv_decode_append_attend"]
+    _, n = kvmp.launch_geometry(s, tile, mode.get("live_len"), False)
+    o_p, t_p = kvmp.fused_append_attend_split_plain(
+        q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=n,
+        length_mask=mode.get("length_mask", True), num_kv_splits=ns)
+    o_1, _, _, t_1 = kvmp.fused_append_attend(q, ck_1, cv_1, nk, nv, ln,
+                                              seq_tile=tile,
+                                              return_tiles=True, **mode)
+    tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(o.float(), o_1.float(), atol=tol, rtol=tol)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    assert torch.equal(ck, ck_1) and torch.equal(cv, cv_1)
+    assert torch.equal(t, t_p) and torch.equal(t, t_1)
+    assert not o[lens.index(-1)].float().abs().any()      # dead row: zeros
+
+
+@pytest.mark.cuda
+def test_split_kv_stages_against_their_plain_versions(rng, cuda_device):
+    """Each stage alone: stage 1's partials (m equal, -inf where a bank is
+    empty) and stage 2 on the kernel's own partials."""
+    s, hkv, g, d, tile, ns = 256, 4, 8, 64, 32, 4
+    lens = [0, 20, 100, 255, -1]
+    b = len(lens)
+    q = _normal(rng, cuda_device, "f32", b, hkv * g, d)
+    ck, cv = (_normal(rng, cuda_device, "f32", b, s, hkv, d) for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, "f32", b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    kw = dict(seq_tile=tile, n_tiles=s // tile, length_mask=True,
+              num_kv_splits=ns)
+    acc, st, t = kvmp.split_partials(q, ck.clone(), cv.clone(), nk, nv, ln,
+                                     **kw)
+    acc_p, st_p, t_p = kvmp.split_partials_plain(q, ck.clone(), cv.clone(),
+                                                 nk, nv, ln, **kw)
+    assert torch.equal(t, t_p)
+    assert torch.equal(torch.isinf(st[..., 0]), torch.isinf(st_p[..., 0]))
+    torch.testing.assert_close(st, st_p, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(acc, acc_p, atol=1e-4, rtol=1e-5)
+    out = kvmp.split_combine(acc, st, torch.float32, hkv)
+    out_p = kvmp.split_combine_plain(acc, st, torch.float32)
+    torch.testing.assert_close(out, out_p, atol=F32_TOL, rtol=F32_TOL)

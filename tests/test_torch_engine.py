@@ -136,9 +136,16 @@ def test_static_bucketed_two_port_engine_matches_jax(served):
 
 
 def test_engine_refuses_unported_options(served):
+    """Split-KV is ported (its count is validated as in the JAX engine);
+    the non-dense families are not (ROADMAP A9)."""
     cfg_t, params_t = served[1], served[3]
-    with pytest.raises(NotImplementedError, match="B4"):
-        TEngine(params_t, cfg_t, num_kv_splits=2, device="cpu")
+    with pytest.raises(ValueError, match="num_kv_splits"):
+        TEngine(params_t, cfg_t, num_kv_splits=0, device="cpu")
+    assert TEngine(params_t, cfg_t, num_kv_splits=2,
+                   device="cpu").num_kv_splits == 2
+    rwkv = treg.get("rwkv6-3b", reduced=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TEngine(params_t, rwkv, device="cpu")
 
 
 def test_engine_staging_is_a_device_copy(served):

@@ -64,17 +64,47 @@ def test_launcher_no_reduced_picks_published_config():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arrival-rate", "0.5"], "A6b"),
-    (["--trace", "t.jsonl"], "A6b"),
-    (["--chaos-seed", "3"], "A6b"),
-    (["--slo", "10"], "A6b"),
-    (["--num-kv-splits", "4"], "B4"),
     (["--kv-shards", "2"], "A8"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_flags(argv, item):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match=item):
         serve.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv,key,value", [
+    (["--arrival-rate", "0.5"], "arrival_rate", 0.5),
+    (["--trace", "t.jsonl"], "trace", "t.jsonl"),
+    (["--arrival-rate", "1", "--chaos-seed", "3"], "chaos_seed", 3),
+    (["--slo", "10"], "slo", 10.0),
+    (["--num-kv-splits", "4"], "num_kv_splits", 4),
+    (["--dtype", "float32"], "dtype", "float32"),
+])
+def test_launcher_accepts_the_ported_flags(argv, key, value):
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    assert getattr(args, key) == value
+    assert serve.open_loop(args) == ("--trace" in argv
+                                     or "--arrival-rate" in argv)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--num-kv-splits", "0"], "num-kv-splits must be >= 1"),
+    (["--chaos-seed", "3"], "needs open-loop mode"),
+    (["--trace", "t.jsonl", "--arrival-rate", "1"], "exclusive"),
+])
+def test_launcher_refuses_bad_flag_combinations(argv, match):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=match):
+        serve.parse_args(argv)
+
+
+def test_launcher_dtype_overrides_the_published_dtype():
+    from repro_torch.launch import serve
+    cfg = serve.arch_config(serve.parse_args(["--no-reduced", "--dtype",
+                                              "float32"]))
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.d_model) == \
+        ("float32", "float32", 2048)
 
 
 def test_entry_points_refuse_a_missing_card():
