@@ -15,7 +15,10 @@ Phases (any failure exits non-zero before the final line):
    against its plain version at the long-context shapes (caches
    [4, 2048, 4, 64], seq_tile 64, num_kv_splits 2, 4, 8), and its caches
    and tile counts against the serial kernel's; num_kv_splits=1 launches
-   the serial kernel only;
+   the serial kernel only. Flash attention (B5) is held against its plain
+   version at 2e-5 (f32) / 5e-2 (bf16): causal and full, Sq != Sk both
+   ways, G of 1, 3 and 8, D of 16, 48, 64 and 128, tiles of 32-128,
+   Sq = q_tile; a non-divisible shape raises before any launch;
 3. serve 4 requests x 8 new tokens of tinyllama-1.1b at full width (bf16,
    as published; random weights from a fixed seed) through
    ``repro_torch.launch.serve`` and check that the path went through the
@@ -29,20 +32,32 @@ Phases (any failure exits non-zero before the final line):
    1500-2000 tokens replayed from a trace (``--max-len 2048
    --chunk-tokens 128 --num-kv-splits 8``), split launches = 22 x decode
    cycles, serial decode launches 0; on the path's decode call time the
-   serial kernel and the split pair at 2, 4 and 8 splits;
-5. check that greedy tokens are identical between the fused kernels and
+   serial kernel and the split pair at 2, 4 and 8 splits, and the chunk
+   kernel on that path's own chunk call (C = 128 over a 2K context);
+5. the whole-prompt dense path at the same full width in f32 (TF32 off):
+   ``forward`` over 2 x 2048 tokens, ``prefill`` of the first 1024 and 8
+   teacher-forced fused decode steps, whose logits match ``forward``'s at
+   the same positions (atol 3e-3, rtol 1e-3) with identical argmax. While
+   ``forward`` runs, flash attention computes every layer's attention
+   through ``ops.flash_attention`` on that layer's own q, k, v, held
+   against the model's ``chunked_causal_attention`` at 2e-5: launches =
+   22 (flash) and 22 x 8 (decode). Layers 0 and 21 are then held against
+   the plain version in f32 and bf16, and layer 0's inputs time the kernel
+   beside its plain version, SDPA and the bound, in f32 and in bf16;
+6. check that greedy tokens are identical between the fused kernels and
    the two-pass reference, and between split and serial decode on a
    long-prompt trace, at the same full width in f32 (TF32 off);
-6. serve an open-loop Poisson schedule at full width in f32, fault-free
+7. serve an open-loop Poisson schedule at full width in f32, fault-free
    and under the seeded chaos plan 23: every invariant audit clean, every
    request served or shed exactly once, survivors' tokens identical to the
    fault-free run;
-7. print the kernel table as JSON, the card's name and power limit, and
+8. print the kernel table as JSON, the card's name and power limit, and
    finally ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,7 +70,16 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores: the
                                     # kernels' arithmetic is f32 FMA
+H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense: the least
+                                    # time for bf16 inputs
 F32_TOL, BF16_TOL = 1e-5, 4e-2
+# flash attention: the JAX suite's flash tolerances
+# (tests/kernels/test_attention_kernels.py, sweep and bf16 cases)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+# prefill/decode against forward: the JAX suite's decode-equivalence
+# tolerance (tests/models/test_decode_equiv.py); f32 sums taken in another
+# order (chunked matmuls vs the fused decode kernel) through 22 layers
+PROMPT_TOL = dict(atol=3e-3, rtol=1e-3)
 SPLITS = (2, 4, 8)                  # the long-context sweep
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "kv_decode_append_attend": ("src/repro_torch/csrc/kv_multiport.cu",
@@ -68,6 +92,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                                "src/repro/kernels/kv_prefill_chunk.py:55"),
     "multiport_sram_step": ("src/repro_torch/csrc/multiport_sram.cu",
                             "src/repro/kernels/multiport_sram.py:42"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:26"),
 }
 
 
@@ -100,14 +126,29 @@ def _ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = H100_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _agree(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float,
+           what: str) -> float:
+    """The largest |a - b|; raises unless |a - b| <= atol + rtol |b|
+    everywhere and both are finite."""
+    a, b = a.float(), b.float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (a - b).abs()
+    if bool((diff > atol + rtol * b.abs()).any()):
+        raise AssertionError(f"{what}: max |diff| {float(diff.max()):.3g} "
+                             f"beyond atol {atol} / rtol {rtol}")
+    return float(diff.max())
 
 
 def _clones(args) -> tuple:
@@ -336,6 +377,47 @@ def check_pool_step(dev, gen) -> dict:
     return {"exact": 0.0}
 
 
+def check_flash(dev, gen) -> dict:
+    """Flash attention against its plain version: causal and full; Sq != Sk
+    both ways (top-left mask); G 1, 3, 8; D 16, 48, 64, 128; tiles of 32,
+    64, 128; Sq = q_tile; one launch per call; a non-divisible shape raises
+    before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, ops
+    cases = [  # b, h, hkv, sq, sk, d, q_tile, k_tile
+        (2, 32, 4, 256, 256, 64, 128, 128), (1, 4, 4, 128, 256, 16, 64, 64),
+        (1, 8, 1, 256, 128, 128, 64, 128), (2, 8, 8, 128, 128, 128, 128, 64),
+        (1, 6, 2, 96, 160, 48, 32, 32)]
+    errs = {"f32": 0.0, "bf16": 0.0}
+    calls = 0
+    before = launch_counts()["flash_attention"]
+    for b, h, hkv, sq, sk, d, qt, kt in cases:
+        for causal in (True, False):
+            for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                rnd = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                              device=dev).to(dt)
+                q, k, v = rnd(b, h, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+                got = ops.flash_attention(q, k, v, causal=causal, q_tile=qt,
+                                          k_tile=kt)
+                calls += 1
+                want = fa.flash_attention_plain(q, k, v, causal=causal)
+                tol = FLASH_TOL[dt]
+                errs[name] = max(errs[name], _agree(
+                    got, want, tol, tol, f"flash_attention {name} causal="
+                    f"{causal} q {tuple(q.shape)} k {tuple(k.shape)}"))
+    q = torch.zeros((1, 4, 96, 16), device=dev)
+    try:
+        ops.flash_attention(q, q[:, :2], q[:, :2], q_tile=64)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention took Sq=96 with q_tile=64")
+    torch.cuda.synchronize()
+    if launch_counts()["flash_attention"] != before + calls:
+        raise AssertionError("flash_attention launches != calls made")
+    return errs
+
+
 # ---- phase 3: the serving path, and each kernel timed on its inputs -----
 
 class MainPathCapture:
@@ -405,7 +487,8 @@ def expect_launches(eng, counts: dict) -> None:
             "kv_decode_split_partial": dec if split else 0,
             "kv_decode_split_combine": dec if split else 0,
             "kv_chunk_append_attend": L * eng.prefill_steps,
-            "multiport_sram_step": eng.pool.traversals}
+            "multiport_sram_step": eng.pool.traversals,
+            "flash_attention": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if not (dec and eng.prefill_steps and eng.pool.traversals):
@@ -652,6 +735,155 @@ def time_pool(args, kw) -> dict:
                      f"{roles} (0=R, 1=W), Q {addr.shape[1]}, lanes on {on}"}
 
 
+def _flash_work(q, k, causal: bool = True) -> tuple[int, int]:
+    """(bytes, operations) of one flash call: q, k, v read and the output
+    written once; 4 D flops (QK and PV) for each query/key pair the mask
+    keeps."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    return nbytes, 4 * b * h * d * pairs
+
+
+def time_flash(q, k, v) -> dict:
+    """Flash attention on the whole-prompt path's own q, k, v (causal),
+    beside its plain version, SDPA (one call, ``is_causal=True``, top-left
+    aligned like the kernel, GQA through ``enable_gqa=True``) and the bound:
+    bf16 inputs against the bf16 tensor-core peak, f32 against the f32
+    CUDA-core peak."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    tol = FLASH_TOL[q.dtype]
+    got = ops.flash_attention(q, k, v, causal=True)
+    err = _agree(got, fa.flash_attention_plain(q, k, v, causal=True), tol,
+                 tol, f"flash_attention {q.dtype} timed call")
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    sdpa_err = _err(sdpa(), got)
+    ms = _ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = _ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
+    lib_ms = _ms(sdpa)
+    bf16 = q.dtype == torch.bfloat16
+    nbytes, flops = _flash_work(q, k)
+    bound, by = _bound_ms(nbytes, flops,
+                          H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library": f"scaled_dot_product_attention (is_causal, enable_gqa; "
+                       f"max |diff| to the kernel {sdpa_err:.3g})",
+            "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, "
+                     f"causal, {flops / 1e9:.2f} GFLOP, bound at "
+                     f"{'bf16 989' if bf16 else 'f32 67'} TFLOP/s"}
+
+
+WHOLE_SEQ, WHOLE_PREFIX, WHOLE_STEPS = 2048, 1024, 8
+
+
+def whole_prompt(dev) -> tuple:
+    """The whole-prompt dense path at full width in f32 with every launch
+    count set to 0 just before it and read just after: ``forward`` over
+    2 x 2048 tokens with flash attention computing each layer's attention
+    beside the model's own, then ``prefill`` of 1024 tokens and 8 fused
+    decode steps held against ``forward``. Returns (launch counts, flash
+    errors, layer 0's q/k/v in [B, H, S, D])."""
+    from repro_torch import models as M
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    cfg = serve.arch_config(serve.parse_args(F32))
+    n_layers, b = cfg.n_layers, 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, device=dev)
+    ids = torch.randint(0, cfg.vocab, (b, WHOLE_SEQ), generator=gen,
+                        device=dev)
+    bhsd = lambda x: x.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+    kept, vs_model = {}, []
+    model_attention = A.chunked_causal_attention
+
+    def with_b5(q, k, v, **kw):
+        """One layer's attention as the model computes it, and B5 through
+        its entry point on the same q, k, v."""
+        out = model_attention(q, k, v, **kw)
+        i = len(vs_model)
+        qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
+        got = ops.flash_attention(qb, kb, vb, causal=True)
+        tol = FLASH_TOL[torch.float32]
+        vs_model.append(_agree(got, bhsd(out), tol, tol, f"flash_attention "
+                               f"vs chunked_causal_attention, layer {i}"))
+        if i in (0, n_layers - 1):
+            kept[i] = (qb, kb, vb)
+        return out
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    A.chunked_causal_attention = with_b5
+    try:
+        logits, aux = M.forward(params, cfg, {"inputs": ids})
+    finally:
+        A.chunked_causal_attention = model_attention
+    state = M.init_decode_state(cfg, b, WHOLE_SEQ, device=dev)
+    state, lg = M.prefill(params, cfg, state,
+                          {"inputs": ids[:, :WHOLE_PREFIX]})
+    at = [WHOLE_PREFIX - 1]
+    got = [lg]
+    for t in range(WHOLE_PREFIX, WHOLE_PREFIX + WHOLE_STEPS):
+        state, lg = M.decode_step(params, cfg, state,
+                                  {"inputs": ids[:, t:t + 1]},
+                                  kernel_mode="multiport")
+        at.append(t)
+        got.append(lg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    took = time.perf_counter() - t0
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n_layers,
+                kv_decode_append_attend=n_layers * WHOLE_STEPS)
+    if counts != want:
+        raise AssertionError(f"whole-prompt launch counts {counts} != {want}")
+    if tuple(logits.shape) != (b, WHOLE_SEQ, cfg.vocab) or float(aux) != 0.0:
+        raise AssertionError(f"forward gave {tuple(logits.shape)}, aux {aux}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("forward logits are not finite")
+    if state["len"].tolist() != [WHOLE_PREFIX + WHOLE_STEPS] * b:
+        raise AssertionError(f"decode state len {state['len'].tolist()}")
+    prompt_err = max(_agree(g, logits[:, t], what=f"position {t} vs forward",
+                            **PROMPT_TOL) for t, g in zip(at, got))
+    if not all(torch.equal(g.argmax(-1), logits[:, t].argmax(-1))
+               for t, g in zip(at, got)):
+        raise AssertionError("prefill/decode argmax differs from forward's")
+    print(f"whole prompt [f32 full width, {b} x {WHOLE_SEQ} tokens]: forward, "
+          f"prefill of {WHOLE_PREFIX} + {WHOLE_STEPS} fused decode steps match "
+          f"forward at positions {at[0]}..{at[-1]} (max |diff| "
+          f"{prompt_err:.3g} within {PROMPT_TOL}), argmax identical; flash "
+          f"attention == chunked_causal_attention on all {n_layers} layers "
+          f"(max |diff| {max(vs_model):.3g}); launch counters {counts}; "
+          f"{took:.2f}s")
+    del params, logits, state, got
+    torch.cuda.empty_cache()
+
+    before, calls = launch_counts()["flash_attention"], 0
+    errs = {"f32": 0.0, "bf16": 0.0, "vs_model": max(vs_model)}
+    for i, (qb, kb, vb) in sorted(kept.items()):
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = qb.to(dt), kb.to(dt), vb.to(dt)
+            out = ops.flash_attention(q, k, v, causal=True)
+            calls += 1
+            tol = FLASH_TOL[dt]
+            errs[name] = max(errs[name], _agree(
+                out, fa.flash_attention_plain(q, k, v, causal=True), tol, tol,
+                f"flash_attention {name} vs plain, layer {i}"))
+    torch.cuda.synchronize()
+    if launch_counts()["flash_attention"] != before + calls:
+        raise AssertionError("flash_attention launches != calls made")
+    print(f"whole prompt: flash attention vs its plain version on layers "
+          f"{sorted(kept)} {errs}")
+    return counts, errs, kept[0]
+
+
 F32 = FULL + ["--dtype", "float32"]
 
 
@@ -743,15 +975,20 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"(nvcc per source: { {k: round(v, 1) for k, v in took.items()} })")
     for log in sorted(K._build.BUILD_DIR.glob("*.ptxas.txt")):
-        for line in sorted(set(log.read_text().splitlines())):
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {log.stem}: {line.strip()}")
+        text = log.read_text()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                               text))
+        print(f"  ptxas {log.name.split('.')[0]}: {len(regs)} kernels, "
+              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+              f"{spill} bytes of spill stores")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"kv_decode_append_attend": check_decode(dev, gen),
             "kv_chunk_append_attend": check_chunk(dev, gen),
-            "multiport_sram_step": check_pool_step(dev, gen)}
+            "multiport_sram_step": check_pool_step(dev, gen),
+            "flash_attention": check_flash(dev, gen)}
     split_errs = check_split(dev, gen)
     errs["kv_decode_split_partial"] = {k: v for k, v in split_errs.items()
                                        if k != "combine"}
@@ -769,12 +1006,32 @@ def main() -> int:
     cap.calls.clear()
     counts, cap = serve_long_context()
     partial, combine, sweep = time_long_decode(*cap.typical("decode"))
+    long_chunk = time_chunk(*cap.typical("chunk"))
     cap.calls.clear()
     print(sweep)
+    print(f"kernel kv_chunk_append_attend on the long-context path's typical "
+          f"call (x{counts['kv_chunk_append_attend']} on that path) "
+          f"[{long_chunk['shape']}]: max_abs_err "
+          f"{long_chunk['max_abs_err']:.3g}, kernel {long_chunk['ms']:.5f} ms, "
+          f"plain {long_chunk['plain_ms']:.5f} ms, {long_chunk['library']} "
+          f"{long_chunk['library_ms']:.5f} ms, bound "
+          f"{long_chunk['bound_ms']:.6f} ms ({long_chunk['bound_by']})")
     found["kv_decode_split_partial"] = (partial,
                                         counts["kv_decode_split_partial"])
     found["kv_decode_split_combine"] = (combine,
                                         counts["kv_decode_split_combine"])
+
+    counts, flash_errs, (q, k, v) = whole_prompt(dev)
+    errs["flash_attention"] = {**errs["flash_attention"], **flash_errs}
+    found["flash_attention"] = (time_flash(q, k, v), counts["flash_attention"])
+    bf16 = time_flash(*(x.to(torch.bfloat16) for x in (q, k, v)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    print(f"kernel flash_attention on the whole-prompt path's layer 0 in bf16 "
+          f"[{bf16['shape']}]: max_abs_err {bf16['max_abs_err']:.3g}, kernel "
+          f"{bf16['ms']:.5f} ms, plain {bf16['plain_ms']:.5f} ms, "
+          f"{bf16['library']} {bf16['library_ms']:.5f} ms, bound "
+          f"{bf16['bound_ms']:.6f} ms ({bf16['bound_by']})")
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -28,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core import fsm
 from repro_torch.core.ports import MAX_PORTS, WRITE, PortConfig, PortRequest
 
@@ -49,9 +50,10 @@ class MemorySpec:
     def words_per_bank(self) -> int:
         return self.num_words // self.num_banks
 
-    def init_storage(self, value: float = 0.0, device="cpu") -> torch.Tensor:
+    def init_storage(self, value: float = 0.0, device="cuda") -> torch.Tensor:
+        """The storage array, on the card unless ``device="cpu"``."""
         return torch.full((self.num_words, self.word_width), value,
-                          dtype=self.dtype, device=device)
+                          dtype=self.dtype, device=_device.resolve(device))
 
     def nbytes(self) -> int:
         return (self.num_words * self.word_width

@@ -18,6 +18,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import device as _device
+
 MAX_PORTS = 4  # the paper's wrapper exposes four external ports
 
 READ = 0
@@ -170,8 +172,10 @@ class PortRequest:
 
 
 def empty_request(queue_len: int, word_width: int, dtype=torch.float32,
-                  device="cpu") -> PortRequest:
-    """An all-invalid request bundle (for disabled ports)."""
+                  device="cuda") -> PortRequest:
+    """An all-invalid request bundle (for disabled ports), on the card
+    unless ``device="cpu"``."""
+    device = _device.resolve(device)
     return PortRequest(
         addr=torch.zeros((queue_len,), dtype=torch.int32, device=device),
         data=torch.zeros((queue_len, word_width), dtype=dtype, device=device),
@@ -180,7 +184,9 @@ def empty_request(queue_len: int, word_width: int, dtype=torch.float32,
 
 
 def read_request(addr, word_width: int, dtype=torch.float32,
-                 mask=None, device="cpu") -> PortRequest:
+                 mask=None, device="cuda") -> PortRequest:
+    """A read bundle for ``addr``, on the card unless ``device="cpu"``."""
+    device = _device.resolve(device)
     addr = torch.as_tensor(addr, dtype=torch.int32, device=device)
     if mask is None:
         mask = torch.ones(addr.shape, dtype=torch.bool, device=device)

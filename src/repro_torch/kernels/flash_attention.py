@@ -1,0 +1,106 @@
+"""Causal (or full) GQA flash attention over whole sequences: the
+training / prefill hot spot.
+
+The CUDA kernel (``csrc/flash_attention.cu``) replaces the JAX package's
+Pallas kernel ``kernels/flash_attention.py:_kernel``: online-softmax tiled
+attention with the running max, sum and accumulator in f32, key tiles
+wholly above the causal diagonal skipped. Contract kept exactly: the causal
+mask is ``qpos >= kpos`` with both counted from 0 (top-left aligned when
+Sq != Sk), scale 1/sqrt(D), k and v read in f32, the softmax denominator
+floored at 1e-30, the output in q's dtype. ``q_tile``/``k_tile`` are the
+JAX interface's arguments and are validated as there; the kernel's own
+blocking only changes the order of the sums.
+
+:func:`flash_attention` launches the kernel for CUDA tensors and runs
+:func:`flash_attention_plain` — the same function in plain torch — for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_HEAD_DIM = 128
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+KERNEL = _build.Launcher(
+    "flash_attention", "flash_attention",
+    [_vp] * 4 + [_i] * 6 + [ctypes.c_float, _i, _i, _i, _vp])
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool) -> torch.Tensor:
+    """The kernel's function in plain torch. q: [B, H, Sq, D]; k, v:
+    [B, Hkv, Sk, D]. Returns [B, H, Sq, D] in q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, sq, d).to(f32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f32)) * (1.0 / d ** 0.5)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(f32))
+    out = acc / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_tile: int = 128,
+                    k_tile: int = 128) -> torch.Tensor:
+    """Tiled attention.
+
+    Args:
+      q: [B, H, Sq, D] (H = Hkv * G); k, v: [B, Hkv, Sk, D].
+      q_tile, k_tile: clamped to Sq and Sk; they must divide them.
+
+    Returns: [B, H, Sq, D] in q's dtype.
+    """
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
+    hkv, sk = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"flash_attention: GQA requires H % Hkv == 0 "
+                         f"(H={h}, Hkv={hkv})")
+    q_tile, k_tile = min(q_tile, sq), min(k_tile, sk)
+    if q_tile <= 0 or k_tile <= 0 or sq % q_tile or sk % k_tile:
+        raise ValueError(f"flash_attention: Sq={sq} and Sk={sk} must be "
+                         f"multiples of q_tile={q_tile} and k_tile={k_tile}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q, k and v must be on one device "
+                         f"(got {q.device}, {k.device}, {v.device})")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    code = _build.DTYPE_CODE
+    if q.dtype not in code or k.dtype not in code:
+        raise ValueError(f"flash_attention: q {q.dtype} / k {k.dtype} not "
+                         f"supported (f32 or bf16)")
+    if v.dtype != k.dtype:
+        raise ValueError("flash_attention: k and v differ in dtype")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: D={d} > {MAX_HEAD_DIM} is not "
+                         f"supported")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.check_cuda("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    P = _build.ptr
+    KERNEL(P(q), P(k), P(v), P(out), b, hkv, h // hkv, sq, sk, d,
+           1.0 / d ** 0.5, int(causal), code[q.dtype], code[k.dtype],
+           _build.stream_of(q))
+    return out

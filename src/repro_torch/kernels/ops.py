@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.multiport import MemorySpec, _dedup_last_wins
 from repro_torch.core.ports import MAX_PORTS, READ, WRITE, PortConfig, PortRequest
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_multiport as kvmp
 from repro_torch.kernels import kv_prefill_chunk as kvpc
 from repro_torch.kernels import multiport_sram as mps
@@ -114,3 +115,12 @@ def fused_prefill_chunk_attention(q, cache_k, cache_v, new_k, new_v, offset,
                                           seq_tile=seq_tile,
                                           live_len=live_len,
                                           dynamic_grid=dynamic_grid)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_tile: int = 128,
+                    k_tile: int = 128) -> torch.Tensor:
+    """Causal (or full) GQA flash attention (see flash_attention.py).
+    q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D]. Returns [B, H, Sq, D]."""
+    return fa.flash_attention(q, k, v, causal=causal, q_tile=q_tile,
+                              k_tile=k_tile)

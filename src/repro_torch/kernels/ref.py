@@ -5,7 +5,8 @@ These are the two-pass (single-port) baselines the engine's
 append first, then attend over the whole cache. They are functional (the
 caches come back as new tensors) and are distinct from the plain versions
 that sit beside each CUDA kernel, which mirror the kernel's own contract
-(in-place update, dead rows, tile counts).
+(in-place update, dead rows, tile counts). ``attention_ref`` is the dense
+oracle of whole-sequence attention (the flash kernel's function).
 """
 from __future__ import annotations
 
@@ -98,3 +99,21 @@ def prefill_chunk_attention_ref(q: torch.Tensor, cache_k: torch.Tensor,
     pr = torch.softmax(sc, dim=-1).to(cache_v.dtype)
     oc = torch.einsum("bchgs,bshd->bchgd", pr.to(f32), cache_v.to(f32))
     return oc.to(q.dtype).reshape(b, c, h, d), cache_k, cache_v
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention with GQA. q:[B,H,Sq,D], k/v:[B,Hkv,Sk,D]."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, sq, d).to(f32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f32)) / (d ** 0.5)
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(f32))
+    return out.reshape(b, h, sq, d).to(q.dtype)

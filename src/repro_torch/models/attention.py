@@ -1,7 +1,9 @@
-"""GQA attention for serving: chunked prefill and decode, each servicing the
-KV cache as a 2-port (1W+1R) memory.
+"""GQA attention: whole-sequence causal (forward and prefill, q-chunked
+plain torch, as the JAX package computes it in jnp), and for serving
+chunked prefill and decode, each servicing the KV cache as a 2-port
+(1W+1R) memory.
 
-``kernel_mode`` selects:
+``kernel_mode`` of the serving steps selects:
 
   * "reference"  — the two-pass oracle (append traversal, then a dense
                    read traversal; ``kernels/ref.py``);
@@ -44,6 +46,77 @@ def _rope(q, k, positions, pos_embed: str, rope_theta: float):
             f"uses rope; mrope/sinusoidal come with ROADMAP item A9)")
     return (L.rope_apply(q, positions, rope_theta),
             L.rope_apply(k, positions, rope_theta))
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, q_chunk: int = 1024
+                             ) -> torch.Tensor:
+    """Causal GQA attention, looped over query chunks.
+
+    Memory is O(B * H * q_chunk * S) instead of O(B * H * S^2); FLOPs are
+    unchanged. q: [B, S, H, D]; k, v: [B, S, Hkv, D]. Returns [B, S, H, D].
+    The products are summed in f32 (JAX's ``preferred_element_type``) and
+    the probabilities are rounded to v's dtype before the PV product, as
+    there.
+    """
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    q_chunk = min(q_chunk, s)
+    assert s % q_chunk == 0, (s, q_chunk)
+    scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    kf, vf = k.to(f32), v.to(f32)
+    kpos = torch.arange(s, device=q.device)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        qc = q[:, c0:c0 + q_chunk].reshape(b, q_chunk, hkv, g, d)
+        qpos = c0 + torch.arange(q_chunk, device=q.device)
+        sc = torch.einsum("bchgd,bshd->bchgs", qc.to(f32), kf) * scale
+        mask = (qpos[:, None] >= kpos[None, :])[None, :, None, None, :]
+        sc = sc.masked_fill(~mask, float("-inf"))
+        pr = torch.softmax(sc, dim=-1).to(v.dtype)
+        oc = torch.einsum("bchgs,bshd->bchgd", pr.to(f32), vf)
+        outs.append(oc.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, s, h, d)
+
+
+def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    pos_embed: str = "rope", rope_theta: float = 10000.0,
+                    q_chunk: int = 1024, compute_dtype=None) -> torch.Tensor:
+    """Full-sequence causal attention (training / prefill compute)."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
+    q, k = _rope(q, k, positions, pos_embed, rope_theta)
+    out = chunked_causal_attention(q, k, v, q_chunk=q_chunk)
+    b, s = x.shape[:2]
+    return L.linear(p["wo"], out.reshape(b, s, n_heads * head_dim),
+                    compute_dtype)
+
+
+def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor, *,
+                      n_heads: int, n_kv_heads: int, head_dim: int,
+                      pos_embed: str = "rope", rope_theta: float = 10000.0,
+                      q_chunk: int = 1024, compute_dtype=None):
+    """Prefill: attend causally over the prompt AND write its K,V into the
+    caches at [0, S), in place.
+
+    cache_k/v: [B, S_max, Hkv, D] with S_max >= S. Returns (out, k', v'),
+    the caches being the (updated) tensors passed in.
+    """
+    b, s = x.shape[:2]
+    if s > cache_k.shape[1]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                         f"{cache_k.shape[1]} positions")
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
+    q, k = _rope(q, k, positions, pos_embed, rope_theta)
+    out = chunked_causal_attention(q, k, v, q_chunk=q_chunk)
+    cache_k[:, :s] = k.to(cache_k.dtype)
+    cache_v[:, :s] = v.to(cache_v.dtype)
+    out = L.linear(p["wo"], out.reshape(b, s, n_heads * head_dim),
+                   compute_dtype)
+    return out, cache_k, cache_v
 
 
 def attention_prefill_chunk(p: dict, x: torch.Tensor, offset: torch.Tensor,

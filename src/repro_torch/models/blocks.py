@@ -1,7 +1,10 @@
-"""Transformer block (dense family): init + chunked-prefill and decode
-steps. Block params are plain dicts; a stacked init gives every leaf a
-leading [n_layers] axis, and the model indexes one layer at a time."""
+"""Transformer block (dense family): init, the whole-sequence body
+(forward and prefill) and the serving steps (chunked prefill and decode).
+Block params are plain dicts; a stacked init gives every leaf a leading
+[n_layers] axis, and the model indexes one layer at a time."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -25,6 +28,30 @@ def transformer_block_init(gen, cfg: ArchConfig, *, device="cpu",
 def _ffn(p: dict, x, cfg: ArchConfig):
     y = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + M.swiglu_apply(p["ffn"], y, compute_dtype=cfg.cdtype)
+
+
+def transformer_block_apply(p: dict, x, positions, cfg: ArchConfig
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill-compute body. Returns (x', aux); aux is the MoE
+    load-balancing loss, 0 for the dense family."""
+    h = A.attention_train(
+        p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
+        q_chunk=cfg.q_chunk, compute_dtype=cfg.cdtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(p, x + h, cfg), aux
+
+
+def transformer_block_prefill(p: dict, x, positions, cache_k, cache_v,
+                              cfg: ArchConfig):
+    h, ck, cv = A.attention_prefill(
+        p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
+        cache_k, cache_v,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
+        q_chunk=cfg.q_chunk, compute_dtype=cfg.cdtype)
+    return _ffn(p, x + h, cfg), ck, cv
 
 
 def transformer_block_prefill_chunk(p: dict, x, offset, chunk_len, cache_k,

@@ -1,6 +1,7 @@
-"""Model assembly for serving: init, decode state, decode step and chunked
-prefill for the dense family, plus the bridge that carries the JAX
-package's parameters across.
+"""Model assembly for the dense family: init, the whole-prompt forward and
+prefill, decode state, decode step and chunked prefill, plus the bridge that
+carries the JAX package's parameters across. ``loss_fn`` and training come
+with ROADMAP item A10.
 
 Parameters are a nested dict of tensors shaped exactly like the JAX
 package's pytree: block leaves are stacked on a leading [n_layers] axis,
@@ -84,6 +85,53 @@ def _layer(tree: PyTree, i: int) -> PyTree:
 def _head(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.linear(params["lm_head"], x, cfg.cdtype)
+
+
+def _default_positions(cfg: ArchConfig, batch: dict, b: int, s: int,
+                       device) -> torch.Tensor:
+    pos = batch.get("positions")
+    if pos is not None:
+        return pos
+    if cfg.pos_embed == "mrope":
+        raise NotImplementedError(
+            "mrope positions are not ported yet (ROADMAP item A9)")
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def forward(params: PyTree, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole sequence at once. batch: {"inputs": ids [B, S], optional
+    "positions": [B, S]}. Returns (logits [B, S, V], aux scalar; 0 for the
+    dense family)."""
+    _check_family(cfg)
+    inputs = batch["inputs"]
+    b, s = inputs.shape[:2]
+    positions = _default_positions(cfg, batch, b, s, inputs.device)
+    x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = B.transformer_block_apply(_layer(params["layers"], i), x,
+                                         positions, cfg)
+        aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
+            ) -> tuple[PyTree, torch.Tensor]:
+    """Process a prompt of length S, writing its K,V at [0, S) of the
+    caches of ``state`` in place. Returns (state' with ``len`` + S, logits
+    of the last position [B, V])."""
+    _check_family(cfg)
+    inputs = batch["inputs"]
+    b, s = inputs.shape[:2]
+    positions = _default_positions(cfg, batch, b, s, inputs.device)
+    x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    ck, cv = state["cache_k"], state["cache_v"]
+    for i in range(cfg.n_layers):   # each layer writes ck[i], cv[i] in place
+        x, _, _ = B.transformer_block_prefill(
+            _layer(params["layers"], i), x, positions, ck[i], cv[i], cfg)
+    logits = _head(params, cfg, x[:, -1:])[:, 0]
+    return dict(state, len=state["len"] + s), logits
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,

@@ -13,8 +13,8 @@ from repro.core.fsm import rotate_single_port as j_rotate
 from repro.core.multiport import _dedup_last_wins as j_dedup
 from repro.kernels import ops as jops
 from repro_torch.core import (READ, WRITE, MemorySpec, PortConfig,
-                              PortRequest, build_schedule, reference_step,
-                              step)
+                              PortRequest, build_schedule, empty_request,
+                              read_request, reference_step, step)
 from repro_torch.core.fsm import PhaseError, rotate_single_port
 from repro_torch.core.multiport import _dedup_last_wins
 from repro_torch.core.priority import complete_priority
@@ -147,3 +147,20 @@ def test_rotate_single_port_matches_jax():
         assert rotate_single_port(sched, phase) == j_rotate(sched, phase)
     with pytest.raises(PhaseError):
         rotate_single_port(sched, -1)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: MemorySpec(num_words=16, word_width=4).init_storage(**kw),
+    lambda **kw: empty_request(4, 8, **kw).data,
+    lambda **kw: read_request([0, 3], 8, **kw).data,
+], ids=["init_storage", "empty_request", "read_request"])
+def test_memory_helpers_default_to_the_card(make):
+    """Like every entry point of the port, the memory's own constructors
+    put their tensors on the card unless asked for the CPU, and raise
+    without one (they defaulted to the CPU before)."""
+    assert make(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -7,18 +7,21 @@ they run where only PyTorch is installed:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances are those of the JAX suite (``tests/kernels/
-test_attention_kernels.py``): f32 1e-5 with TF32 off, bf16 4e-2. Cache
-updates, serviced-tile counts and the pool step are bit-exact.
+test_attention_kernels.py``): f32 1e-5 with TF32 off, bf16 4e-2 (flash
+attention: 2e-5 and 5e-2, that suite's flash cases). Cache updates,
+serviced-tile counts and the pool step are bit-exact.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.ports import READ, WRITE
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_multiport as kvmp
 from repro_torch.kernels import kv_prefill_chunk as kvpc
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import multiport_sram as mps
+from repro_torch.kernels import ops
 
 F32_TOL, BF16_TOL = 1e-5, 4e-2
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -193,3 +196,49 @@ def test_split_kv_stages_against_their_plain_versions(rng, cuda_device):
     out = kvmp.split_combine(acc, st, torch.float32, hkv)
     out_p = kvmp.split_combine_plain(acc, st, torch.float32)
     torch.testing.assert_close(out, out_p, atol=F32_TOL, rtol=F32_TOL)
+
+
+FLASH_TOL = {"f32": 2e-5, "bf16": 5e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,qt,kt", [
+    (2, 32, 4, 256, 256, 64, 128, 128),    # tinyllama heads, G = 8
+    (1, 4, 4, 128, 256, 16, 64, 64),       # G = 1, Sq < Sk (top-left)
+    (1, 8, 1, 256, 128, 128, 64, 128),     # G = 8, Sq > Sk, D = 128
+    (2, 8, 8, 128, 128, 128, 128, 64),     # Sq = q_tile
+    (1, 6, 2, 96, 160, 48, 32, 32),        # G = 3, D = 48, ragged tiles
+])
+def test_flash_attention_kernel_on_card(rng, cuda_device, dt, causal, b, h,
+                                        hkv, sq, sk, d, qt, kt):
+    """B5 against its plain version, one launch per call."""
+    q = _normal(rng, cuda_device, dt, b, h, sq, d)
+    k, v = (_normal(rng, cuda_device, dt, b, hkv, sk, d) for _ in "kv")
+    before = launch_counts()["flash_attention"]
+    o = ops.flash_attention(q, k, v, causal=causal, q_tile=qt, k_tile=kt)
+    assert launch_counts()["flash_attention"] == before + 1
+    o_p = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    tol = FLASH_TOL[dt]
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_before_launching(cuda_device):
+    """A non-divisible shape, a CPU/CUDA mix or D > 128 raises and
+    launches nothing."""
+    before = launch_counts()["flash_attention"]
+    q = torch.zeros((1, 4, 96, 16), device=cuda_device)
+    k = torch.zeros((1, 2, 96, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k, q_tile=64)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.cpu(), k, k)
+    big = torch.zeros((1, 2, 64, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="128"):
+        ops.flash_attention(big, big, big)
+    assert launch_counts()["flash_attention"] == before
