@@ -16,9 +16,11 @@ Phases (any failure exits non-zero before the final line):
    [4, 2048, 4, 64], seq_tile 64, num_kv_splits 2, 4, 8), and its caches
    and tile counts against the serial kernel's; num_kv_splits=1 launches
    the serial kernel only. Flash attention (B5) is held against its plain
-   version at 2e-5 (f32) / 5e-2 (bf16): causal and full, Sq != Sk both
-   ways, G of 1, 3 and 8, D of 16, 48, 64 and 128, tiles of 32-128,
-   Sq = q_tile; a non-divisible shape raises before any launch;
+   version at 2e-5 (f32, the CUDA-core kernel) / 5e-2 (bf16, the
+   tensor-core kernel): causal and full, Sq != Sk both ways, Sq and Sk off
+   the 64/128 tiles (200, 333), G of 1, 3, 7 and 8, D of 16, 48, 64 and
+   128, a batch of 3, tiles of 32-128, Sq = q_tile, each call launching its
+   route's kernel once; a non-divisible shape raises before any launch;
 3. serve 4 requests x 8 new tokens of tinyllama-1.1b at full width (bf16,
    as published; random weights from a fixed seed) through
    ``repro_torch.launch.serve`` and check that the path went through the
@@ -32,18 +34,27 @@ Phases (any failure exits non-zero before the final line):
    1500-2000 tokens replayed from a trace (``--max-len 2048
    --chunk-tokens 128 --num-kv-splits 8``), split launches = 22 x decode
    cycles, serial decode launches 0; on the path's decode call time the
-   serial kernel and the split pair at 2, 4 and 8 splits, and the chunk
-   kernel on that path's own chunk call (C = 128 over a 2K context);
+   serial kernel and the split pair at 2, 4 and 8 splits, the chunk
+   kernel on that path's own chunk call (C = 128 over a 2K context) and the
+   pool step on that path's largest call (a decode cycle's gather of every
+   live word);
 5. the whole-prompt dense path at the same full width in f32 (TF32 off):
    ``forward`` over 2 x 2048 tokens, ``prefill`` of the first 1024 and 8
    teacher-forced fused decode steps, whose logits match ``forward``'s at
    the same positions (atol 3e-3, rtol 1e-3) with identical argmax. While
    ``forward`` runs, flash attention computes every layer's attention
    through ``ops.flash_attention`` on that layer's own q, k, v, held
-   against the model's ``chunked_causal_attention`` at 2e-5: launches =
-   22 (flash) and 22 x 8 (decode). Layers 0 and 21 are then held against
-   the plain version in f32 and bf16, and layer 0's inputs time the kernel
-   beside its plain version, SDPA and the bound, in f32 and in bf16;
+   against the model's ``chunked_causal_attention`` and its plain version
+   at 2e-5: launches = 22 (flash, the CUDA-core kernel), 0 (flash_tc) and
+   22 x 8 (decode). Layers 0 and 21 are then held against the plain
+   version in f32 and cast to bf16, and layer 0's inputs time the kernel
+   beside its plain version, SDPA and the bound;
+5b. the whole-prompt path at the published bf16: ``forward`` over 2 x 2048
+   tokens with the tensor-core kernel computing every layer's attention,
+   held against ``chunked_causal_attention`` and the plain version at
+   5e-2: launches = 22 (flash_tc), 0 (flash). Layer 0's inputs time it;
+   so do bf16 q/k/v at qwen2-vl-7b's heads (G = 7, D = 128, 2048
+   positions, seed 0);
 6. check that greedy tokens are identical between the fused kernels and
    the two-pass reference, and between split and serial decode on a
    long-prompt trace, at the same full width in f32 (TF32 off);
@@ -94,7 +105,11 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                             "src/repro/kernels/multiport_sram.py:42"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:26"),
+    "flash_attention_tc": ("src/repro_torch/csrc/flash_attention_tc.cu",
+                           "src/repro/kernels/flash_attention.py:26"),
 }
+FLASH_ROUTE = {torch.float32: "flash_attention",      # f32 CUDA cores
+               torch.bfloat16: "flash_attention_tc"}  # bf16 tensor cores
 
 
 def _card() -> str:
@@ -379,18 +394,21 @@ def check_pool_step(dev, gen) -> dict:
 
 def check_flash(dev, gen) -> dict:
     """Flash attention against its plain version: causal and full; Sq != Sk
-    both ways (top-left mask); G 1, 3, 8; D 16, 48, 64, 128; tiles of 32,
-    64, 128; Sq = q_tile; one launch per call; a non-divisible shape raises
-    before any launch."""
+    both ways (top-left mask); G 1, 3, 7, 8; D 16, 48, 64, 128; Sq and Sk
+    off the tensor-core kernel's 64/128 tiles; a batch of 3; tiles of 32,
+    64, 128; Sq = q_tile; one launch per call, f32 on the CUDA-core kernel
+    and bf16 on the tensor-core one; a non-divisible shape raises before
+    any launch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, ops
     cases = [  # b, h, hkv, sq, sk, d, q_tile, k_tile
         (2, 32, 4, 256, 256, 64, 128, 128), (1, 4, 4, 128, 256, 16, 64, 64),
         (1, 8, 1, 256, 128, 128, 64, 128), (2, 8, 8, 128, 128, 128, 128, 64),
-        (1, 6, 2, 96, 160, 48, 32, 32)]
+        (1, 6, 2, 96, 160, 48, 32, 32), (1, 4, 2, 200, 333, 16, 200, 333),
+        (3, 6, 2, 333, 200, 48, 333, 200), (1, 7, 1, 200, 333, 128, 200, 333)]
     errs = {"f32": 0.0, "bf16": 0.0}
-    calls = 0
-    before = launch_counts()["flash_attention"]
+    calls = {name: 0 for name in FLASH_ROUTE.values()}
+    before = launch_counts()
     for b, h, hkv, sq, sk, d, qt, kt in cases:
         for causal in (True, False):
             for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -399,7 +417,7 @@ def check_flash(dev, gen) -> dict:
                 q, k, v = rnd(b, h, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
                 got = ops.flash_attention(q, k, v, causal=causal, q_tile=qt,
                                           k_tile=kt)
-                calls += 1
+                calls[FLASH_ROUTE[dt]] += 1
                 want = fa.flash_attention_plain(q, k, v, causal=causal)
                 tol = FLASH_TOL[dt]
                 errs[name] = max(errs[name], _agree(
@@ -413,9 +431,18 @@ def check_flash(dev, gen) -> dict:
     else:
         raise AssertionError("flash_attention took Sq=96 with q_tile=64")
     torch.cuda.synchronize()
-    if launch_counts()["flash_attention"] != before + calls:
-        raise AssertionError("flash_attention launches != calls made")
+    _expect_flash_calls(before, calls)
     return errs
+
+
+def _expect_flash_calls(before: dict, calls: dict) -> None:
+    """Each flash route launched exactly the calls sent to it since
+    ``before``."""
+    from repro_torch.kernels import launch_counts
+    now = launch_counts()
+    ran = {name: now[name] - before[name] for name in calls}
+    if ran != calls:
+        raise AssertionError(f"flash launches {ran} != calls made {calls}")
 
 
 # ---- phase 3: the serving path, and each kernel timed on its inputs -----
@@ -451,6 +478,11 @@ class MainPathCapture:
 
     def typical(self, name: str) -> tuple:
         return max(self.calls[name].values(), key=lambda s: s[0])[1]
+
+    def largest(self, name: str, size) -> tuple:
+        """The kept call whose ``size(args)`` is largest."""
+        return max((s[1] for s in self.calls[name].values()),
+                   key=lambda call: size(call[0]))
 
 
 def serve_path(argv: list) -> tuple:
@@ -488,7 +520,7 @@ def expect_launches(eng, counts: dict) -> None:
             "kv_decode_split_combine": dec if split else 0,
             "kv_chunk_append_attend": L * eng.prefill_steps,
             "multiport_sram_step": eng.pool.traversals,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if not (dec and eng.prefill_steps and eng.pool.traversals):
@@ -717,10 +749,12 @@ def time_pool(args, kw) -> dict:
     if roles[0] == WRITE:
         rows = data[0][mask[0]]
         lib_ms = _ms(lambda: st.index_copy_(0, idx, rows))
-        lib = "index_copy_ (the first port alone)"
+        lib = ("index_copy_ of the first port alone, a part of B3's "
+               "function, not a yardstick")
     else:
         lib_ms = _ms(lambda: st.index_select(0, idx))
-        lib = "index_select (the first port alone)"
+        lib = ("index_select of the first port alone, a part of B3's "
+               "function, not a yardstick")
     on = mask.sum(dim=1).tolist()
     el, width = storage.element_size(), storage.shape[1]
     moved = sum(n * (2 if r == WRITE else 1) for n, r in zip(on, roles))
@@ -782,49 +816,76 @@ def time_flash(q, k, v) -> dict:
 WHOLE_SEQ, WHOLE_PREFIX, WHOLE_STEPS = 2048, 1024, 8
 
 
+def _forward_with_b5(cfg, params, ids) -> tuple:
+    """``forward`` over ``ids`` with B5, through its entry point, computing
+    each layer's attention on that layer's own q, k, v beside the model's
+    ``chunked_causal_attention``, and held against both it and B5's plain
+    version. Returns (logits, aux, largest |diff| to the model and to the
+    plain version over the layers, layers 0 and L-1's q/k/v in
+    [B, H, S, D])."""
+    from repro_torch import models as M
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    bhsd = lambda x: x.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+    kept, vs_model, vs_plain = {}, [], []
+    model_attention = A.chunked_causal_attention
+
+    def with_b5(q, k, v, **kw):
+        out = model_attention(q, k, v, **kw)
+        i = len(vs_model)
+        qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
+        got = ops.flash_attention(qb, kb, vb, causal=True)
+        tol = FLASH_TOL[q.dtype]
+        vs_model.append(_agree(got, bhsd(out), tol, tol, f"flash_attention "
+                               f"{q.dtype} vs chunked_causal_attention, "
+                               f"layer {i}"))
+        vs_plain.append(_agree(got, fa.flash_attention_plain(
+            qb, kb, vb, causal=True), tol, tol, f"flash_attention "
+            f"{q.dtype} vs plain, layer {i}"))
+        if i in (0, cfg.n_layers - 1):
+            kept[i] = (qb, kb, vb)
+        return out
+
+    A.chunked_causal_attention = with_b5
+    try:
+        logits, aux = M.forward(params, cfg, {"inputs": ids})
+    finally:
+        A.chunked_causal_attention = model_attention
+    if len(vs_model) != cfg.n_layers:
+        raise AssertionError(f"forward ran attention {len(vs_model)} times")
+    return logits, aux, {"vs_model": max(vs_model),
+                         "vs_plain": max(vs_plain)}, kept
+
+
+def _check_logits(logits, aux, b: int, cfg) -> None:
+    if tuple(logits.shape) != (b, WHOLE_SEQ, cfg.vocab) or float(aux) != 0.0:
+        raise AssertionError(f"forward gave {tuple(logits.shape)}, aux {aux}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("forward logits are not finite")
+
+
 def whole_prompt(dev) -> tuple:
     """The whole-prompt dense path at full width in f32 with every launch
     count set to 0 just before it and read just after: ``forward`` over
-    2 x 2048 tokens with flash attention computing each layer's attention
-    beside the model's own, then ``prefill`` of 1024 tokens and 8 fused
-    decode steps held against ``forward``. Returns (launch counts, flash
-    errors, layer 0's q/k/v in [B, H, S, D])."""
+    2 x 2048 tokens with flash attention (the CUDA-core kernel) computing
+    each layer's attention beside the model's own, then ``prefill`` of 1024
+    tokens and 8 fused decode steps held against ``forward``. Returns
+    (launch counts, flash errors, layer 0's q/k/v in [B, H, S, D])."""
     from repro_torch import models as M
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, ops, reset_launch_counts
     from repro_torch.launch import serve
-    from repro_torch.models import attention as A
     cfg = serve.arch_config(serve.parse_args(F32))
     n_layers, b = cfg.n_layers, 2
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(cfg, gen, device=dev)
     ids = torch.randint(0, cfg.vocab, (b, WHOLE_SEQ), generator=gen,
                         device=dev)
-    bhsd = lambda x: x.permute(0, 2, 1, 3).contiguous()  # noqa: E731
-    kept, vs_model = {}, []
-    model_attention = A.chunked_causal_attention
-
-    def with_b5(q, k, v, **kw):
-        """One layer's attention as the model computes it, and B5 through
-        its entry point on the same q, k, v."""
-        out = model_attention(q, k, v, **kw)
-        i = len(vs_model)
-        qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
-        got = ops.flash_attention(qb, kb, vb, causal=True)
-        tol = FLASH_TOL[torch.float32]
-        vs_model.append(_agree(got, bhsd(out), tol, tol, f"flash_attention "
-                               f"vs chunked_causal_attention, layer {i}"))
-        if i in (0, n_layers - 1):
-            kept[i] = (qb, kb, vb)
-        return out
 
     t0 = time.perf_counter()
     reset_launch_counts()
-    A.chunked_causal_attention = with_b5
-    try:
-        logits, aux = M.forward(params, cfg, {"inputs": ids})
-    finally:
-        A.chunked_causal_attention = model_attention
+    logits, aux, fwd_errs, kept = _forward_with_b5(cfg, params, ids)
     state = M.init_decode_state(cfg, b, WHOLE_SEQ, device=dev)
     state, lg = M.prefill(params, cfg, state,
                           {"inputs": ids[:, :WHOLE_PREFIX]})
@@ -844,10 +905,7 @@ def whole_prompt(dev) -> tuple:
                 kv_decode_append_attend=n_layers * WHOLE_STEPS)
     if counts != want:
         raise AssertionError(f"whole-prompt launch counts {counts} != {want}")
-    if tuple(logits.shape) != (b, WHOLE_SEQ, cfg.vocab) or float(aux) != 0.0:
-        raise AssertionError(f"forward gave {tuple(logits.shape)}, aux {aux}")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("forward logits are not finite")
+    _check_logits(logits, aux, b, cfg)
     if state["len"].tolist() != [WHOLE_PREFIX + WHOLE_STEPS] * b:
         raise AssertionError(f"decode state len {state['len'].tolist()}")
     prompt_err = max(_agree(g, logits[:, t], what=f"position {t} vs forward",
@@ -860,28 +918,82 @@ def whole_prompt(dev) -> tuple:
           f"forward at positions {at[0]}..{at[-1]} (max |diff| "
           f"{prompt_err:.3g} within {PROMPT_TOL}), argmax identical; flash "
           f"attention == chunked_causal_attention on all {n_layers} layers "
-          f"(max |diff| {max(vs_model):.3g}); launch counters {counts}; "
+          f"(max |diff| {fwd_errs['vs_model']:.3g}; vs its plain version "
+          f"{fwd_errs['vs_plain']:.3g}); launch counters {counts}; "
           f"{took:.2f}s")
     del params, logits, state, got
     torch.cuda.empty_cache()
 
-    before, calls = launch_counts()["flash_attention"], 0
-    errs = {"f32": 0.0, "bf16": 0.0, "vs_model": max(vs_model)}
+    before = launch_counts()
+    calls = {name: 0 for name in FLASH_ROUTE.values()}
+    errs = {"f32": fwd_errs["vs_plain"], "bf16": 0.0,
+            "vs_model": fwd_errs["vs_model"]}
     for i, (qb, kb, vb) in sorted(kept.items()):
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = qb.to(dt), kb.to(dt), vb.to(dt)
             out = ops.flash_attention(q, k, v, causal=True)
-            calls += 1
+            calls[FLASH_ROUTE[dt]] += 1
             tol = FLASH_TOL[dt]
             errs[name] = max(errs[name], _agree(
                 out, fa.flash_attention_plain(q, k, v, causal=True), tol, tol,
                 f"flash_attention {name} vs plain, layer {i}"))
     torch.cuda.synchronize()
-    if launch_counts()["flash_attention"] != before + calls:
-        raise AssertionError("flash_attention launches != calls made")
+    _expect_flash_calls(before, calls)
     print(f"whole prompt: flash attention vs its plain version on layers "
-          f"{sorted(kept)} {errs}")
+          f"{sorted(kept)} (f32, and cast to bf16) {errs}")
     return counts, errs, kept[0]
+
+
+def whole_prompt_bf16(dev) -> tuple:
+    """The whole-prompt path at tinyllama's published bf16 with every launch
+    count set to 0 just before it and read just after: ``forward`` over
+    2 x 2048 tokens with the tensor-core kernel computing each of the 22
+    layers' attention beside the model's own. Returns (launch counts,
+    errors, layer 0's q/k/v in [B, H, S, D])."""
+    from repro_torch import models as M
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    cfg = serve.arch_config(serve.parse_args(FULL))
+    if cfg.cdtype != torch.bfloat16:
+        raise AssertionError(f"published dtype is {cfg.cdtype}, not bf16")
+    n_layers, b = cfg.n_layers, 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, device=dev)
+    ids = torch.randint(0, cfg.vocab, (b, WHOLE_SEQ), generator=gen,
+                        device=dev)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    logits, aux, errs, kept = _forward_with_b5(cfg, params, ids)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    took = time.perf_counter() - t0
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_tc=n_layers)
+    if counts != want:
+        raise AssertionError(f"bf16 whole-prompt launch counts {counts} != "
+                             f"{want}")
+    _check_logits(logits, aux, b, cfg)
+    print(f"whole prompt [bf16 full width, {b} x {WHOLE_SEQ} tokens]: "
+          f"forward finite; tensor-core flash attention == "
+          f"chunked_causal_attention on all {n_layers} layers (max |diff| "
+          f"{errs['vs_model']:.3g}; vs its plain version "
+          f"{errs['vs_plain']:.3g}, tolerance {FLASH_TOL[torch.bfloat16]}); "
+          f"launch counters {counts}; {took:.2f}s")
+    del params, logits
+    torch.cuda.empty_cache()
+    return counts, {"bf16": errs["vs_plain"], "vs_model": errs["vs_model"]}, \
+        kept[0]
+
+
+def head_dim_128(dev) -> tuple:
+    """q/k/v at qwen2-vl-7b's head layout (G = 7, D = 128) over 2048
+    positions, bf16, random from seed 0."""
+    from repro_torch.configs import registry
+    cfg = registry.get("qwen2-vl-7b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return tuple(torch.randn((1, n, WHOLE_SEQ, d), generator=gen, device=dev)
+                 .to(torch.bfloat16) for n in (h, hkv, hkv))
 
 
 F32 = FULL + ["--dtype", "float32"]
@@ -985,10 +1097,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    flash = check_flash(dev, gen)
     errs = {"kv_decode_append_attend": check_decode(dev, gen),
             "kv_chunk_append_attend": check_chunk(dev, gen),
             "multiport_sram_step": check_pool_step(dev, gen),
-            "flash_attention": check_flash(dev, gen)}
+            "flash_attention": {"f32": flash["f32"]},
+            "flash_attention_tc": {"bf16": flash["bf16"]}}
     split_errs = check_split(dev, gen)
     errs["kv_decode_split_partial"] = {k: v for k, v in split_errs.items()
                                        if k != "combine"}
@@ -1007,8 +1121,17 @@ def main() -> int:
     counts, cap = serve_long_context()
     partial, combine, sweep = time_long_decode(*cap.typical("decode"))
     long_chunk = time_chunk(*cap.typical("chunk"))
+    # the decode cycle's gather of every live word: the pool's largest call
+    long_pool = time_pool(*cap.largest("pool", lambda a: int(a[3].sum())))
     cap.calls.clear()
     print(sweep)
+    print(f"kernel multiport_sram_step on the long-context path's largest "
+          f"call (x{counts['multiport_sram_step']} calls on that path) "
+          f"[{long_pool['shape']}]: max_abs_err "
+          f"{long_pool['max_abs_err']:.3g}, kernel {long_pool['ms']:.5f} ms, "
+          f"plain {long_pool['plain_ms']:.5f} ms, {long_pool['library']} "
+          f"{long_pool['library_ms']:.5f} ms, bound "
+          f"{long_pool['bound_ms']:.6f} ms ({long_pool['bound_by']})")
     print(f"kernel kv_chunk_append_attend on the long-context path's typical "
           f"call (x{counts['kv_chunk_append_attend']} on that path) "
           f"[{long_chunk['shape']}]: max_abs_err "
@@ -1022,16 +1145,27 @@ def main() -> int:
                                         counts["kv_decode_split_combine"])
 
     counts, flash_errs, (q, k, v) = whole_prompt(dev)
-    errs["flash_attention"] = {**errs["flash_attention"], **flash_errs}
+    errs["flash_attention"]["whole_prompt"] = flash_errs["f32"]
+    errs["flash_attention"]["vs_model"] = flash_errs["vs_model"]
+    errs["flash_attention_tc"]["f32_layers_cast"] = flash_errs["bf16"]
     found["flash_attention"] = (time_flash(q, k, v), counts["flash_attention"])
-    bf16 = time_flash(*(x.to(torch.bfloat16) for x in (q, k, v)))
     del q, k, v
     torch.cuda.empty_cache()
-    print(f"kernel flash_attention on the whole-prompt path's layer 0 in bf16 "
-          f"[{bf16['shape']}]: max_abs_err {bf16['max_abs_err']:.3g}, kernel "
-          f"{bf16['ms']:.5f} ms, plain {bf16['plain_ms']:.5f} ms, "
-          f"{bf16['library']} {bf16['library_ms']:.5f} ms, bound "
-          f"{bf16['bound_ms']:.6f} ms ({bf16['bound_by']})")
+    counts, tc_errs, (q, k, v) = whole_prompt_bf16(dev)
+    errs["flash_attention_tc"]["whole_prompt"] = tc_errs["bf16"]
+    errs["flash_attention_tc"]["vs_model"] = tc_errs["vs_model"]
+    found["flash_attention_tc"] = (time_flash(q, k, v),
+                                   counts["flash_attention_tc"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    wide = time_flash(*head_dim_128(dev))
+    torch.cuda.empty_cache()
+    print(f"kernel flash_attention_tc at qwen2-vl-7b's heads (G = 7, "
+          f"D = 128) [{wide['shape']}]: max_abs_err "
+          f"{wide['max_abs_err']:.3g}, "
+          f"kernel {wide['ms']:.5f} ms, plain {wide['plain_ms']:.5f} ms, "
+          f"{wide['library']} {wide['library_ms']:.5f} ms, bound "
+          f"{wide['bound_ms']:.6f} ms ({wide['bound_by']})")
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("multiport_sram", "kv_multiport", "kv_multiport_split",
-           "kv_prefill_chunk", "flash_attention")
+           "kv_prefill_chunk", "flash_attention", "flash_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

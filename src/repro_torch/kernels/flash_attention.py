@@ -1,17 +1,24 @@
 """Causal (or full) GQA flash attention over whole sequences: the
 training / prefill hot spot.
 
-The CUDA kernel (``csrc/flash_attention.cu``) replaces the JAX package's
-Pallas kernel ``kernels/flash_attention.py:_kernel``: online-softmax tiled
-attention with the running max, sum and accumulator in f32, key tiles
-wholly above the causal diagonal skipped. Contract kept exactly: the causal
-mask is ``qpos >= kpos`` with both counted from 0 (top-left aligned when
-Sq != Sk), scale 1/sqrt(D), k and v read in f32, the softmax denominator
-floored at 1e-30, the output in q's dtype. ``q_tile``/``k_tile`` are the
-JAX interface's arguments and are validated as there; the kernel's own
-blocking only changes the order of the sums.
+Two CUDA kernels replace the JAX package's Pallas kernel
+``kernels/flash_attention.py:_kernel``: online-softmax tiled attention with
+the running max, sum and accumulator in f32, key tiles wholly above the
+causal diagonal skipped. :func:`route` picks one from the dtypes and the
+head dim alone, before the launch: bf16 q, k and v with D a multiple of 8
+(TMA's 16-byte rows) go to the tensor-core kernel
+(``csrc/flash_attention_tc.cu``: TMA, an mbarrier ring, ``wgmma``, P
+rounded to bf16 for the second product); everything else (f32, which TF32
+would take below its 2e-5 contract, and bf16 q over f32 k/v) to the f32
+CUDA-core kernel (``csrc/flash_attention.cu``). Each has its own launch
+counter, ``flash_attention_tc`` and ``flash_attention``. Contract kept
+exactly: the causal mask is ``qpos >= kpos`` with both counted from 0
+(top-left aligned when Sq != Sk), scale 1/sqrt(D), sums in f32, the
+softmax denominator floored at 1e-30, the output in q's dtype.
+``q_tile``/``k_tile`` are the JAX interface's arguments and are validated
+as there; the kernels' own blocking only changes the order of the sums.
 
-:func:`flash_attention` launches the kernel for CUDA tensors and runs
+:func:`flash_attention` launches a kernel for CUDA tensors and runs
 :func:`flash_attention_plain` — the same function in plain torch — for CPU
 tensors.
 """
@@ -29,6 +36,49 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = _build.Launcher(
     "flash_attention", "flash_attention",
     [_vp] * 4 + [_i] * 6 + [ctypes.c_float, _i, _i, _i, _vp])
+KERNEL_TC = _build.Launcher(
+    "flash_attention_tc", "flash_attention_tc",
+    [_vp] * 4 + [_i] * 6 + [ctypes.c_float, _i, _vp])
+
+# the tensor-core kernel's tiling (csrc/flash_attention_tc.cu, Geo<DP>)
+TC_BLOCK_Q = 64        # query rows per CTA: one wgmma M
+TC_STAGES = 2          # K/V ring depth
+TC_ATOM_COLS = 64      # bf16 columns per 128-byte swizzled row (one box)
+
+
+def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> str:
+    """Which kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 q,
+    k and v with D <= 128 a multiple of 8, else ``"fma"`` (f32 CUDA
+    cores)."""
+    bf = torch.bfloat16
+    if q_dtype == bf and kv_dtype == bf and d <= MAX_HEAD_DIM and d % 8 == 0:
+        return "tc"
+    return "fma"
+
+
+def tc_geometry(d: int) -> dict:
+    """The tensor-core kernel's tiles for head dim ``d`` (<= 128): D padded
+    to 64 or 128 by TMA's zero fill, keys per tile, 64-column swizzle atoms
+    per row, TMA boxes (columns, rows) for Q and for K/V, ring stages and
+    dynamic shared memory in bytes (1024 of alignment slack, Q, the K and V
+    rings, 2 * stages + 1 mbarriers)."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"tc_geometry: D={d} outside 1..{MAX_HEAD_DIM}")
+    dp = 64 if d <= 64 else 128
+    bn = 128 if dp == 64 else 64
+    q_bytes, kv_bytes = TC_BLOCK_Q * dp * 2, bn * dp * 2
+    return {"padded_d": dp, "block_q": TC_BLOCK_Q, "block_k": bn,
+            "atoms": dp // TC_ATOM_COLS, "box_q": (TC_ATOM_COLS, TC_BLOCK_Q),
+            "box_kv": (TC_ATOM_COLS, bn), "stages": TC_STAGES,
+            "smem_bytes": (1024 + q_bytes + 2 * TC_STAGES * kv_bytes
+                           + 8 * (2 * TC_STAGES + 1))}
+
+
+def tc_smem_bytes_built(d: int) -> int:
+    """The built kernel's own shared-memory size for head dim ``d`` (needs
+    the CUDA toolkit): what :func:`tc_geometry` must equal."""
+    lib = _build.library("flash_attention_tc")
+    return int(lib.flash_attention_tc_smem_bytes(ctypes.c_int(d)))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,6 +150,13 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     _build.check_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
     P = _build.ptr
+    if route(q.dtype, k.dtype, d) == "tc":
+        # TMA reads from 16-byte aligned bases; a view may start off one
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+        KERNEL_TC(P(q), P(k), P(v), P(out), b, hkv, h // hkv, sq, sk, d,
+                  1.0 / d ** 0.5, int(causal), _build.stream_of(q))
+        return out
     KERNEL(P(q), P(k), P(v), P(out), b, hkv, h // hkv, sq, sk, d,
            1.0 / d ** 0.5, int(causal), code[q.dtype], code[k.dtype],
            _build.stream_of(q))

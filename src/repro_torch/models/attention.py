@@ -20,7 +20,8 @@ from repro_torch.models import layers as L
 
 def attention_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
                    head_dim: int, *, qkv_bias: bool = False,
-                   dtype=torch.float32, device="cpu", lead: tuple = ()) -> dict:
+                   dtype=torch.float32, device="cuda",
+                   lead: tuple = ()) -> dict:
     kw = dict(dtype=dtype, device=device, lead=lead)
     return {
         "wq": L.linear_init(gen, d_model, n_heads * head_dim, bias=qkv_bias, **kw),

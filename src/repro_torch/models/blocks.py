@@ -12,7 +12,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 
 
-def transformer_block_init(gen, cfg: ArchConfig, *, device="cpu",
+def transformer_block_init(gen, cfg: ArchConfig, *, device="cuda",
                            lead: tuple = ()) -> dict:
     kw = dict(dtype=cfg.pdtype, device=device, lead=lead)
     return {

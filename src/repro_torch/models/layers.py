@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch import device as _device
+
 
 # --------------------------------------------------------------------------
 # initializers
@@ -35,8 +37,10 @@ def fan_in_init(gen, shape, dtype, device, fan_in: int | None = None):
 # --------------------------------------------------------------------------
 
 def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
-                dtype=torch.float32, device="cpu", lead: tuple = ()) -> dict:
-    """``lead`` prepends stacking dims (the layer axis of a stacked block)."""
+                dtype=torch.float32, device="cuda", lead: tuple = ()) -> dict:
+    """``lead`` prepends stacking dims (the layer axis of a stacked block).
+    Like every init here, on the card unless ``device="cpu"``."""
+    device = _device.resolve(device)
     p = {"w": fan_in_init(gen, (*lead, d_in, d_out), dtype, device)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
@@ -55,8 +59,9 @@ def linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
 
 def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
-                   device="cpu") -> dict:
-    return {"w": normal_init(gen, (vocab, d), dtype, 1.0, device)}
+                   device="cuda") -> dict:
+    return {"w": normal_init(gen, (vocab, d), dtype, 1.0,
+                             _device.resolve(device))}
 
 
 def embedding_lookup(p: dict, ids: torch.Tensor,
@@ -67,9 +72,10 @@ def embedding_lookup(p: dict, ids: torch.Tensor,
     return w[ids.long()]
 
 
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu",
+def rmsnorm_init(d: int, dtype=torch.float32, device="cuda",
                  lead: tuple = ()) -> dict:
-    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+    return {"scale": torch.ones((*lead, d), dtype=dtype,
+                                device=_device.resolve(device))}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -85,11 +91,12 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """[head_dim//2] inverse frequencies."""
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                         device=device) / half))
+                                         device=_device.resolve(device))
+                            / half))
 
 
 def rope_apply(x: torch.Tensor, positions: torch.Tensor,

@@ -8,7 +8,7 @@ from repro_torch.models import layers as L
 
 
 def swiglu_init(gen, d_model: int, d_ff: int, dtype=torch.float32,
-                device="cpu", lead: tuple = ()) -> dict:
+                device="cuda", lead: tuple = ()) -> dict:
     kw = dict(dtype=dtype, device=device, lead=lead)
     return {
         "w_gate": L.linear_init(gen, d_model, d_ff, **kw),

@@ -17,8 +17,13 @@ from repro_torch.core import (READ, WRITE, MemorySpec, PortConfig,
                               read_request, reference_step, step)
 from repro_torch.core.fsm import PhaseError, rotate_single_port
 from repro_torch.core.multiport import _dedup_last_wins
+from repro_torch.configs import registry as treg
 from repro_torch.core.priority import complete_priority
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attention_init
+from repro_torch.models.blocks import transformer_block_init
+from repro_torch.models.mlp import swiglu_init
 
 DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -158,6 +163,39 @@ def test_memory_helpers_default_to_the_card(make):
     """Like every entry point of the port, the memory's own constructors
     put their tensors on the card unless asked for the CPU, and raise
     without one (they defaulted to the CPU before)."""
+    assert make(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def _init_gen(kw):
+    """A generator on the device the call will draw on (the card when the
+    call names none and one is present)."""
+    on_card = "device" not in kw and torch.cuda.is_available()
+    return torch.Generator(device="cuda" if on_card else "cpu").manual_seed(0)
+
+
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: L.linear_init(_init_gen(kw), 4, 8, **kw)["w"],
+    lambda **kw: L.embedding_init(_init_gen(kw), 10, 4, **kw)["w"],
+    lambda **kw: L.rmsnorm_init(4, **kw)["scale"],
+    lambda **kw: L.rope_frequencies(8, **kw),
+    lambda **kw: swiglu_init(_init_gen(kw), 4, 8, **kw)["w_up"]["w"],
+    lambda **kw: attention_init(_init_gen(kw), 16, 4, 2, 4, **kw)["wq"]["w"],
+    lambda **kw: transformer_block_init(
+        _init_gen(kw), treg.get("tinyllama-1.1b", reduced=True),
+        **kw)["ln1"]["scale"],
+], ids=["linear_init", "embedding_init", "rmsnorm_init", "rope_frequencies",
+        "swiglu_init", "attention_init", "transformer_block_init"])
+def test_model_init_helpers_default_to_the_card(make):
+    """The model's public init helpers, like ``init_params`` and the JAX
+    counterparts, build on the accelerator unless asked for the CPU, and
+    raise without one (they defaulted to the CPU before)."""
     assert make(device="cpu").device.type == "cpu"
     if torch.cuda.is_available():
         assert make().device.type == "cuda"

@@ -74,29 +74,50 @@ def test_decode_kernel_on_card(rng, cuda_device, qdt, cdt, mode):
     assert not o[lens.index(-1)].float().abs().any()      # dead row: zeros
 
 
+CHUNK_CASES = {
+    # 16 chunk rows x 32 heads over two query-row blocks: offsets at 0 and
+    # at tile edges, a one-row and an empty chunk, a dead row
+    "short": dict(s=128, c=16, tile=16, d=64,
+                  off=[0, 15, 16, 40, -1, 100, 3],
+                  cl=[16, 16, 1, 9, 0, 16, 0]),
+    # a head dim that is not a multiple of 4: the element-wise K/V loader
+    "odd_dim": dict(s=128, c=16, tile=16, d=18, off=[0, 15, 16, -1, 100],
+                    cl=[16, 1, 9, 0, 16]),
+    # the long path's shape: C = 128 over a 2K context, offsets at
+    # k*64 - 1, k*64 and k*64 + 1, lens 0, 1 and C, a dead row
+    "long": dict(s=2048, c=128, tile=64, d=64,
+                 off=[639, 1280, 1601, -1, 320, 1919],
+                 cl=[128, 1, 0, 0, 128, 128]),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 @pytest.mark.parametrize("qdt,cdt", [("f32", "f32"), ("bf16", "f32"),
                                      ("bf16", "bf16")])
-def test_chunk_kernel_on_card(rng, cuda_device, qdt, cdt):
-    """Offsets at 0 and at tile edges, a one-row and an empty chunk, a dead
-    row; 16 chunk rows x 32 heads spread over two query-row blocks."""
-    s, c, hkv, g, d, tile = 128, 16, 4, 8, 64, 16
-    off = [0, tile - 1, tile, 40, -1, 100, 3]
-    cl = [16, 16, 1, 9, 0, 16, 0]
+def test_chunk_kernel_on_card(rng, cuda_device, qdt, cdt, case):
+    """B2 against its plain version; caches and tile counts bit-exact."""
+    kw = CHUNK_CASES[case]
+    s, c, tile, d = kw["s"], kw["c"], kw["tile"], kw["d"]
+    off, cl = kw["off"], kw["cl"]
+    hkv, g = 4, 8
     b = len(off)
     q = _normal(rng, cuda_device, qdt, b, c, hkv * g, d)
     ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
     nk, nv = (_normal(rng, cuda_device, cdt, b, c, hkv, d) for _ in "kv")
     of, ln = _ints(cuda_device, off), _ints(cuda_device, cl)
     ck_p, cv_p = ck.clone(), cv.clone()
+    before = launch_counts()["kv_chunk_append_attend"]
     o, _, _, t = kvpc.fused_chunk_append_attend(
         q, ck, cv, nk, nv, of, ln, seq_tile=tile, return_tiles=True)
+    assert launch_counts()["kv_chunk_append_attend"] == before + 1
     o_p, t_p = kvpc.fused_chunk_append_attend_plain(
         q, ck_p, cv_p, nk, nv, of, ln, seq_tile=tile, n_tiles=s // tile)
     tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
     torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
     assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
     assert torch.equal(t, t_p)
+    assert not o[off.index(-1)].float().abs().any()       # dead row: zeros
 
 
 @pytest.mark.cuda
@@ -210,15 +231,26 @@ FLASH_TOL = {"f32": 2e-5, "bf16": 5e-2}
     (1, 8, 1, 256, 128, 128, 64, 128),     # G = 8, Sq > Sk, D = 128
     (2, 8, 8, 128, 128, 128, 128, 64),     # Sq = q_tile
     (1, 6, 2, 96, 160, 48, 32, 32),        # G = 3, D = 48, ragged tiles
+    # the tensor-core kernel's ragged edges: Sq, Sk not multiples of 64 or
+    # 128, D padded by TMA's zero fill, G = 7, a batch of 3
+    (1, 4, 2, 200, 333, 16, 200, 333),     # D = 16, Sq < Sk
+    (1, 4, 2, 333, 200, 48, 333, 200),     # D = 48, Sq > Sk
+    (3, 6, 2, 200, 333, 64, 200, 333),     # batch 3, G = 3
+    (1, 7, 1, 333, 200, 128, 333, 200),    # G = 7, D = 128, Sq > Sk
+    (3, 14, 2, 200, 200, 128, 200, 200),   # G = 7, D = 128, batch 3
 ])
 def test_flash_attention_kernel_on_card(rng, cuda_device, dt, causal, b, h,
                                         hkv, sq, sk, d, qt, kt):
-    """B5 against its plain version, one launch per call."""
+    """B5 against its plain version, one launch per call: bf16 on the
+    tensor-core kernel, f32 on the CUDA-core one."""
     q = _normal(rng, cuda_device, dt, b, h, sq, d)
     k, v = (_normal(rng, cuda_device, dt, b, hkv, sk, d) for _ in "kv")
-    before = launch_counts()["flash_attention"]
+    ran = "flash_attention_tc" if dt == "bf16" else "flash_attention"
+    other = "flash_attention" if dt == "bf16" else "flash_attention_tc"
+    before = launch_counts()
     o = ops.flash_attention(q, k, v, causal=causal, q_tile=qt, k_tile=kt)
-    assert launch_counts()["flash_attention"] == before + 1
+    after = launch_counts()
+    assert after[ran] == before[ran] + 1 and after[other] == before[other]
     o_p = fa.flash_attention_plain(q, k, v, causal=causal)
     assert o.dtype == q.dtype and o.shape == q.shape
     tol = FLASH_TOL[dt]
@@ -226,10 +258,51 @@ def test_flash_attention_kernel_on_card(rng, cuda_device, dt, causal, b, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kdt,d", [("bf16", "f32", 64),
+                                      ("bf16", "bf16", 12)])
+def test_flash_attention_mixed_dtypes_stay_on_the_cuda_cores(
+        rng, cuda_device, qdt, kdt, d):
+    """bf16 q over f32 k/v, and bf16 at a D TMA cannot tile, take the
+    CUDA-core kernel."""
+    q = _normal(rng, cuda_device, qdt, 1, 4, 96, d)
+    k, v = (_normal(rng, cuda_device, kdt, 1, 2, 128, d) for _ in "kv")
+    before = launch_counts()
+    o = ops.flash_attention(q, k, v, causal=True)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_tc"] == before["flash_attention_tc"]
+    torch.testing.assert_close(
+        o.float(), fa.flash_attention_plain(q, k, v, causal=True).float(),
+        atol=FLASH_TOL["bf16"], rtol=FLASH_TOL["bf16"])
+
+
+@pytest.mark.cuda
+def test_flash_attention_tc_reads_an_unaligned_view(rng, cuda_device):
+    """A q view that starts off a 16-byte boundary still launches the
+    tensor-core kernel (the wrapper realigns it)."""
+    base = _normal(rng, cuda_device, "bf16", 1 * 4 * 128 * 64 + 3)
+    q = base[3:].view(1, 4, 128, 64)
+    assert q.data_ptr() % 16 != 0
+    k, v = (_normal(rng, cuda_device, "bf16", 1, 2, 128, 64) for _ in "kv")
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(
+        o.float(), fa.flash_attention_plain(q, k, v, causal=True).float(),
+        atol=FLASH_TOL["bf16"], rtol=FLASH_TOL["bf16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 48, 64, 128])
+def test_flash_attention_tc_geometry_matches_the_build(cuda_device, d):
+    """The host-side mirror of the tensor-core kernel's tiles names the
+    shared memory the built kernel asks for."""
+    assert fa.tc_smem_bytes_built(d) == fa.tc_geometry(d)["smem_bytes"]
+
+
+@pytest.mark.cuda
 def test_flash_attention_refuses_before_launching(cuda_device):
     """A non-divisible shape, a CPU/CUDA mix or D > 128 raises and
     launches nothing."""
-    before = launch_counts()["flash_attention"]
+    before = launch_counts()
     q = torch.zeros((1, 4, 96, 16), device=cuda_device)
     k = torch.zeros((1, 2, 96, 16), device=cuda_device)
     with pytest.raises(ValueError):
@@ -241,4 +314,6 @@ def test_flash_attention_refuses_before_launching(cuda_device):
     big = torch.zeros((1, 2, 64, 256), device=cuda_device)
     with pytest.raises(ValueError, match="128"):
         ops.flash_attention(big, big, big)
-    assert launch_counts()["flash_attention"] == before
+    with pytest.raises(ValueError, match="128"):
+        ops.flash_attention(big.bfloat16(), big.bfloat16(), big.bfloat16())
+    assert launch_counts() == before
