@@ -11,7 +11,10 @@ Phases (any failure exits non-zero before the final line):
    serving path's shapes (full tinyllama-1.1b, launcher defaults): f32 with
    TF32 off at 1e-5, bf16 queries at 4e-2, ragged lengths, a dead row,
    appends at 0 and at tile edges, tile counts identical, the pool step
-   bit-exact on a 4-port mix. The split-KV pair (stage 1 + stage 2) is held
+   bit-exact on port mixes whose ports hit the same words in every hazard
+   order (W->R, R->W, W->W), with Q = 8192 and most lanes off, and with
+   a payload on each write slot and a result for each read slot only. The
+   split-KV pair (stage 1 + stage 2) is held
    against its plain version at the long-context shapes (caches
    [4, 2048, 4, 64], seq_tile 64, num_kv_splits 2, 4, 8), and its caches
    and tile counts against the serial kernel's; num_kv_splits=1 launches
@@ -36,8 +39,9 @@ Phases (any failure exits non-zero before the final line):
    cycles, serial decode launches 0; on the path's decode call time the
    serial kernel and the split pair at 2, 4 and 8 splits, the chunk
    kernel on that path's own chunk call (C = 128 over a 2K context) and the
-   pool step on that path's largest call (a decode cycle's gather of every
-   live word);
+   pool step on that path's largest call (the last cycle's scrub of every
+   live word) and on its largest decode gather, each beside the previous
+   design's time;
 5. the whole-prompt dense path at the same full width in f32 (TF32 off):
    ``forward`` over 2 x 2048 tokens, ``prefill`` of the first 1024 and 8
    teacher-forced fused decode steps, whose logits match ``forward``'s at
@@ -83,6 +87,11 @@ H100_F32_FLOPS = 67e12              # f32 outside the tensor cores: the
                                     # kernels' arithmetic is f32 FMA
 H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense: the least
                                     # time for bf16 inputs
+# the previous designs' times (ms) of the two redesigned kernels on the
+# calls timed below, from PERF.md's kernel table (NVIDIA H100 80GB HBM3,
+# 700.00 W): printed beside this run's
+PREVIOUS_MS = {"pool short": 0.01007, "pool long": 1.62133,
+               "split partial": 0.03365}
 F32_TOL, BF16_TOL = 1e-5, 4e-2
 # flash attention: the JAX suite's flash tolerances
 # (tests/kernels/test_attention_kernels.py, sweep and bf16 cases)
@@ -167,7 +176,23 @@ def _agree(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float,
 
 
 def _clones(args) -> tuple:
-    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+    """Copies of a call's arguments: tensors, and lists of tensors."""
+    def clone(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(clone(x) for x in a)
+        return a
+    return tuple(clone(a) for a in args)
+
+
+def _shape_key(a):
+    """A hashable stand-in for an argument: its shape (or its items')."""
+    if torch.is_tensor(a):
+        return tuple(a.shape)
+    if isinstance(a, (list, tuple)):
+        return tuple(_shape_key(x) for x in a)
+    return a
 
 
 # ---- phase 2: each kernel against its plain version ---------------------
@@ -210,9 +235,15 @@ def _chunk_agree(args, kw) -> float:
 
 
 def _pool_agree(args, kw) -> float:
+    """Kernel and plain version on copies of the same inputs: storage and
+    reads bit-identical, one launch."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels import multiport_sram as mps
     a, p = _clones(args), _clones(args)
+    before = launch_counts()["multiport_sram_step"]
     r_k = mps.multiport_sram_step(*a, **kw)
+    if launch_counts()["multiport_sram_step"] != before + 1:
+        raise AssertionError("pool step: not one launch per call")
     r_p = mps.multiport_sram_step_plain(*p, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(a[0], p[0]) and torch.equal(r_k, r_p)):
@@ -365,30 +396,49 @@ def check_chunk(dev, gen) -> dict:
 
 
 def check_pool_step(dev, gen) -> dict:
+    """The pool step bit-exact against its plain version on the full
+    tinyllama pool: later ports hit half of port 0's words, so each mix
+    checks its hazard orders (W->R, R->W, W->W); Q = 8192 with most lanes
+    off, as the long path's decode gathers and scrubs are; bf16 storage;
+    a row that is not a whole number of 16-byte moves."""
     from repro_torch.core.ports import READ, WRITE
     words, width = 8192, 22 * 2 * 4 * 64            # full tinyllama pool
     storage = torch.randn((words, width), generator=gen, device=dev)
 
-    def ports(roles, q, lanes_on):
+    def ports(st, roles, q, lanes_on):
         p = len(roles)
-        addr = torch.randint(0, words, (p, q), generator=gen, device=dev,
-                             dtype=torch.int32)
+        addr = torch.randint(0, st.shape[0], (p, q), generator=gen,
+                             device=dev, dtype=torch.int32)
         addr[1:, : q // 2] = addr[0, : q // 2]      # later ports hit port 0's
         mask = torch.zeros((p, q), dtype=torch.bool, device=dev)
-        mask[:, :lanes_on] = True
-        for s, r in enumerate(roles):               # dedup write lanes
-            if r == WRITE:
+        for s, (r, on) in enumerate(zip(roles, lanes_on)):
+            mask[s, :on] = True
+            if r == WRITE:                          # dedup write lanes
                 a = addr[s].tolist()
                 last = {w: i for i, w in enumerate(a)}
                 mask[s] &= torch.tensor([last[w] == i for i, w in enumerate(a)],
                                         device=dev)
-        data = torch.randn((p, q, width), generator=gen, device=dev)
-        return storage, addr, data, mask
+        data = [torch.randn((q, st.shape[1]), generator=gen,
+                            device=dev).to(st.dtype)
+                for r in roles if r == WRITE]
+        return st, addr, data, mask
 
-    for roles, q, on in (((WRITE, READ, WRITE, READ), 64, 48),  # 4-port mix
-                         ((WRITE, WRITE, READ), 128, 128),       # 2W+1R, WAW
-                         ((READ,), 16, 9)):
-        _pool_agree(ports(roles, q, on), dict(roles=roles))
+    R, W = READ, WRITE
+    cases = [((W, R, W, R), 64, (48,) * 4),           # W->R, R->W, W->W
+             ((W, W, R), 128, (128,) * 3),             # W->W then W->R
+             ((R, W, R), 256, (256, 200, 256)),        # R->W->R on one word
+             ((R, R, W), 64, (64,) * 3),               # R->R needs no barrier
+             ((R,), 16, (9,)),
+             ((W, R), 8192, (4, 7080)),                # a decode gather
+             ((W,), 8192, (7080,)),                    # a scrub
+             ((R,), 8192, (9,))]                       # most lanes off
+    for roles, q, on in cases:
+        _pool_agree(ports(storage, roles, q, on), dict(roles=roles))
+    half = storage[:, :-1].contiguous()     # 11263 f32: 4-byte moves
+    _pool_agree(ports(half, (W, R, W), 512, (400,) * 3), dict(roles=(W, R, W)))
+    bf = storage[:1024].to(torch.bfloat16)
+    _pool_agree(ports(bf, (W, R, W, R), 256, (200,) * 4),
+                dict(roles=(W, R, W, R)))
     return {"exact": 0.0}
 
 
@@ -461,8 +511,7 @@ class MainPathCapture:
         orig = getattr(module, attr)
 
         def hooked(*args, **kw):
-            key = (tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                         for a in args), tuple(sorted(kw.items())))
+            key = (_shape_key(args), tuple(sorted(kw.items())))
             slot = self.calls.setdefault(name, {}).setdefault(key, [0, None])
             slot[0] += 1
             slot[1] = (_clones(args), dict(kw))
@@ -480,9 +529,9 @@ class MainPathCapture:
         return max(self.calls[name].values(), key=lambda s: s[0])[1]
 
     def largest(self, name: str, size) -> tuple:
-        """The kept call whose ``size(args)`` is largest."""
+        """The kept call whose ``size(args, kw)`` is largest."""
         return max((s[1] for s in self.calls[name].values()),
-                   key=lambda call: size(call[0]))
+                   key=lambda call: size(*call))
 
 
 def serve_path(argv: list) -> tuple:
@@ -663,6 +712,7 @@ def time_long_decode(args, kw) -> tuple:
     skw = dict(seq_tile=tile, n_tiles=n,
                length_mask=base.get("length_mask", True), num_kv_splits=ns)
     partial_ms = _ms(lambda: kvmp.split_partials(*args, **skw))
+    geo = kvmp.split_geometry(h // hkv, d, ck.element_size())
     partial_plain_ms = _ms(lambda: kvmp.split_partials_plain(*args, **skw))
     acc, st, _ = kvmp.split_partials(*_clones(args), **skw)
     err_combine = _combine_agree(acc, st, q.dtype, hkv)
@@ -679,7 +729,13 @@ def time_long_decode(args, kw) -> tuple:
     sweep = (f"long-context decode [{shape}]: serial kernel {serial_ms:.5f} "
              f"ms (bound {serial_bound:.6f} ms, bytes); split pair "
              + ", ".join(f"ns={k} {v:.5f} ms" for k, v in pair_ms.items())
-             + f"; SDPA (attend only) {lib_ms:.5f} ms")
+             + f"; SDPA (attend only) {lib_ms:.5f} ms; stage 1 alone at "
+             f"ns={ns} {partial_ms:.5f} ms (previous design "
+             f"{PREVIOUS_MS['split partial']:.5f} ms; bound {p_bound:.6f} ms, "
+             f"{p_by}; ring of {geo['stages']} stages of "
+             f"{kvmp.SPLIT_STAGE_KEYS} keys, {geo['smem_bytes']} B of shared "
+             f"memory, {'16-byte cp.async' if geo['vector_loader'] else 'element-wise'} "
+             f"loader)")
     partial = {"max_abs_err": err_pair, "ms": partial_ms,
                "plain_ms": partial_plain_ms, "bound_ms": p_bound,
                "bound_by": p_by, "library_ms": lib_ms,
@@ -735,6 +791,27 @@ def time_chunk(args, kw) -> dict:
                      f" {ck.dtype}, offsets {of.tolist()}, lens {cl.tolist()}"}
 
 
+def _pool_bytes(args, kw) -> tuple[int, str]:
+    """(bytes the pool step must move, the terms): per write lane on its
+    payload row read and its word written; per read lane on the word read
+    and its output row written; per read lane off a zero row written; the
+    addresses and masks read once."""
+    from repro_torch.core.ports import WRITE
+    storage, addr, _, mask = args
+    row = storage.shape[1] * storage.element_size()
+    q = addr.shape[1]
+    on = mask.sum(dim=1).tolist()
+    w_on = sum(n for n, r in zip(on, kw["roles"]) if r == WRITE)
+    r_on = sum(n for n, r in zip(on, kw["roles"]) if r != WRITE)
+    r_off = sum(q - n for n, r in zip(on, kw["roles"]) if r != WRITE)
+    index = addr.numel() * addr.element_size() + mask.numel()
+    nbytes = (2 * w_on + 2 * r_on + r_off) * row + index
+    terms = (f"{w_on} write lanes x 2 rows + {r_on} read lanes x 2 rows + "
+             f"{r_off} zero rows, of {row} B, + {index} B of addresses and "
+             f"masks = {nbytes} B")
+    return nbytes, terms
+
+
 def time_pool(args, kw) -> dict:
     from repro_torch.core.ports import WRITE
     from repro_torch.kernels import multiport_sram as mps
@@ -745,28 +822,48 @@ def time_pool(args, kw) -> dict:
     ms = _ms(lambda: mps.multiport_sram_step(st, addr, data, mask, **kw))
     plain_ms = _ms(lambda: mps.multiport_sram_step_plain(st, addr, data, mask,
                                                          **kw))
-    idx = addr[0][mask[0]].long()
-    if roles[0] == WRITE:
-        rows = data[0][mask[0]]
+    on = mask.sum(dim=1).tolist()
+    big = max(range(len(roles)), key=lambda i: on[i])   # the busiest port
+    idx = addr[big][mask[big]].long()
+    if roles[big] == WRITE:
+        rows = data[roles[:big].count(WRITE)][mask[big]]
         lib_ms = _ms(lambda: st.index_copy_(0, idx, rows))
-        lib = ("index_copy_ of the first port alone, a part of B3's "
+        lib = ("index_copy_ of the busiest port alone, a part of B3's "
                "function, not a yardstick")
     else:
         lib_ms = _ms(lambda: st.index_select(0, idx))
-        lib = ("index_select of the first port alone, a part of B3's "
+        lib = ("index_select of the busiest port alone, a part of B3's "
                "function, not a yardstick")
-    on = mask.sum(dim=1).tolist()
-    el, width = storage.element_size(), storage.shape[1]
-    moved = sum(n * (2 if r == WRITE else 1) for n, r in zip(on, roles))
-    nbytes = (moved * width * el             # payload in + words out; reads
-              + data.numel() * el            # the [P, Q, W] read output
-              + addr.numel() * 4 + mask.numel())
+    nbytes, terms = _pool_bytes(args, kw)
     bound, by = _bound_ms(nbytes, 0.0)
+    ports = "+".join("W" if r == WRITE else "R" for r in roles)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            "library": lib,
+            "library": lib, "bytes": terms,
             "shape": f"storage {tuple(storage.shape)} {storage.dtype}, ports "
-                     f"{roles} (0=R, 1=W), Q {addr.shape[1]}, lanes on {on}"}
+                     f"{ports} in service order, Q {addr.shape[1]}, lanes on "
+                     f"{on}"}
+
+
+def _lanes_on(args, kw) -> int:
+    return int(args[3].sum())
+
+
+def _read_lanes_on(args, kw) -> int:
+    from repro_torch.core.ports import WRITE
+    return sum(int(m.sum()) for m, r in zip(args[3], kw["roles"])
+               if r != WRITE)
+
+
+def _print_pool(what: str, row: dict, calls: int, previous) -> None:
+    before = ("not timed" if previous is None
+              else f"{previous:.5f} ms")
+    print(f"kernel multiport_sram_step on {what} (x{calls} calls on that "
+          f"path) [{row['shape']}]: max_abs_err {row['max_abs_err']:.3g}, "
+          f"kernel {row['ms']:.5f} ms (previous design {before}), plain "
+          f"{row['plain_ms']:.5f} ms, {row['library']} "
+          f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}: {row['bytes']})")
 
 
 def _flash_work(q, k, causal: bool = True) -> tuple[int, int]:
@@ -1118,20 +1215,20 @@ def main() -> int:
                               ("multiport_sram_step", time_pool, "pool")):
         found[name] = (timer(*cap.typical(call)), counts[name])
     cap.calls.clear()
+    _print_pool("the short path's typical call", found["multiport_sram_step"][0],
+                counts["multiport_sram_step"], PREVIOUS_MS["pool short"])
     counts, cap = serve_long_context()
     partial, combine, sweep = time_long_decode(*cap.typical("decode"))
     long_chunk = time_chunk(*cap.typical("chunk"))
-    # the decode cycle's gather of every live word: the pool's largest call
-    long_pool = time_pool(*cap.largest("pool", lambda a: int(a[3].sum())))
+    # the pool's largest call, and its largest decode gather
+    long_pool = time_pool(*cap.largest("pool", _lanes_on))
+    gather = time_pool(*cap.largest("pool", _read_lanes_on))
     cap.calls.clear()
     print(sweep)
-    print(f"kernel multiport_sram_step on the long-context path's largest "
-          f"call (x{counts['multiport_sram_step']} calls on that path) "
-          f"[{long_pool['shape']}]: max_abs_err "
-          f"{long_pool['max_abs_err']:.3g}, kernel {long_pool['ms']:.5f} ms, "
-          f"plain {long_pool['plain_ms']:.5f} ms, {long_pool['library']} "
-          f"{long_pool['library_ms']:.5f} ms, bound "
-          f"{long_pool['bound_ms']:.6f} ms ({long_pool['bound_by']})")
+    _print_pool("the long-context path's largest call", long_pool,
+                counts["multiport_sram_step"], PREVIOUS_MS["pool long"])
+    _print_pool("the long-context path's largest decode gather", gather,
+                counts["multiport_sram_step"], None)
     print(f"kernel kv_chunk_append_attend on the long-context path's typical "
           f"call (x{counts['kv_chunk_append_attend']} on that path) "
           f"[{long_chunk['shape']}]: max_abs_err "

@@ -64,17 +64,21 @@ def _dedup_last_wins(addr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Keep only the last valid occurrence of each address (queue order).
 
     The same mask as ``mask[i] and not any(addr[j] == addr[i] and mask[j]
-    for j > i)``, computed as a last-index scatter over the distinct
-    addresses instead of a ``[Q, Q]`` comparison (Q reaches the thousands
-    at the engine's read-lane buckets)."""
+    for j > i)``, computed from a stable sort of the lanes by address
+    instead of a ``[Q, Q]`` comparison (Q reaches the thousands at the
+    engine's read-lane buckets): the last lane of each run of equal
+    addresses wins. Masked-off lanes sort under keys of their own, above
+    every int32 address. Every tensor has a size fixed by Q, so nothing
+    here waits on the card."""
     q = addr.shape[0]
     if q == 0:
         return mask.clone()
-    _, inv = torch.unique(addr, return_inverse=True)
     lane = torch.arange(q, device=addr.device)
-    last = torch.full((q,), -1, dtype=torch.long, device=addr.device)
-    last = last.scatter_reduce(0, inv[mask], lane[mask], reduce="amax")
-    return mask & (last[inv] == lane)
+    key = torch.where(mask, addr.long(), lane + (1 << 32))
+    keys, order = torch.sort(key, stable=True)
+    last = torch.ones_like(mask)
+    last[:-1] = keys[1:] != keys[:-1]                 # last lane of its run
+    return mask & torch.empty_like(mask).scatter_(0, order, last)
 
 
 def _normalize(addr: torch.Tensor, num_words: int) -> torch.Tensor:

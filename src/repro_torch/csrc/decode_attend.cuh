@@ -1,6 +1,7 @@
-// The decode R port of one (row, kv-head) block, shared by the serial
-// decode kernel (kv_multiport.cu) and stage 1 of split-KV decode
-// (kv_multiport_split.cu).
+// The decode R port of one (row, kv-head) block of the serial decode
+// kernel (kv_multiport.cu). Stage 1 of split-KV decode
+// (kv_multiport_split.cu) shares its W port (append_row) and its geometry
+// check, and streams its keys through a ring of its own.
 //
 // A block holds its kv head's G query heads in shared memory and streams
 // the keys of one range [lo, hi) of its row through shared memory in

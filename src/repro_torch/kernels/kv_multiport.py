@@ -29,7 +29,10 @@ each row's own live tiles over ``ns`` contiguous banks and writes each
 bank's unnormalized f32 ``(acc, m, l)``; stage 2 (:func:`split_combine`)
 LSE-combines the banks. Caches and tile counts are those of the serial
 path; the output agrees with it within f32 rounding (the banks sum in
-another order). ``num_kv_splits=1`` is the serial kernel itself.
+another order). ``num_kv_splits=1`` is the serial kernel itself. Stage 1
+streams its bank's keys through a ring of shared-memory stages
+(:func:`split_geometry`; :func:`split_stage_plan` mirrors which thread
+scores which key).
 """
 from __future__ import annotations
 
@@ -50,6 +53,76 @@ SPLIT_KERNEL = _build.Launcher(
 COMBINE_KERNEL = _build.Launcher(
     "kv_multiport_split", "kv_decode_split_combine",
     [_vp] * 3 + [_i] * 6 + [_vp])
+
+# stage 1's tiling (csrc/kv_multiport_split.cu)
+SPLIT_STAGE_KEYS = 64           # keys per ring stage
+SPLIT_MAX_STAGES = 4
+SPLIT_THREADS = 256
+SPLIT_SCORE_PITCH = SPLIT_STAGE_KEYS + 4    # floats per score row
+SMEM_LIMIT = 232448             # an H100 block's dynamic shared memory
+
+
+def split_geometry(g: int, d: int, cache_bytes: int) -> dict:
+    """Stage 1's shared memory for ``g`` query heads of ``d`` dims over a
+    cache of ``cache_bytes``-byte elements: the K/V row pitch in bytes (the
+    row rounded up to 16 bytes, plus 16), the ring's stages (as many as fit,
+    at most 4), the dynamic shared memory in bytes (q [g, d] f32, scores
+    [g, 68] f32, 32 alphas, the ring), and whether rows load as 16-byte
+    ``cp.async`` copies (else element by element)."""
+    if not (0 < g <= 32 and 0 < d <= 128 and cache_bytes in (2, 4)):
+        raise ValueError(f"split_geometry: G={g}, D={d}, {cache_bytes}-byte "
+                         f"cache not supported")
+    pitch = -(-d * cache_bytes // 16) * 16 + 16
+    fixed = -(-g * d * 4 // 16) * 16 + g * SPLIT_SCORE_PITCH * 4 + 32 * 4
+    stage = 2 * SPLIT_STAGE_KEYS * pitch
+    stages = min(SPLIT_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return {"pitch": pitch, "stages": stages,
+            "smem_bytes": fixed + stages * stage,
+            "vector_loader": d * cache_bytes % 16 == 0}
+
+
+def split_geometry_built(g: int, d: int, cache_bytes: int) -> dict:
+    """The built kernel's own geometry (needs the CUDA toolkit): what
+    :func:`split_geometry` must equal, ``vector_loader`` aside."""
+    fn = _build.library("kv_multiport_split").kv_decode_split_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    rc = fn(g, d, cache_bytes, out)
+    if rc:
+        raise ValueError(f"kv_decode_split_geometry refused G={g}, D={d}")
+    return {"pitch": out[0], "stages": out[1], "smem_bytes": out[2]}
+
+
+def split_bank_range(p: int, bank: int, *, seq_tile: int, n_tiles: int,
+                     s: int, num_kv_splits: int) -> tuple[int, int]:
+    """Keys [lo, hi) that stage 1's block ``bank`` of a row with append
+    position ``p`` attends over: the TPU kernel's bank partition, cut at
+    the row's live end (empty for a dead row)."""
+    if p < 0:
+        return 0, 0
+    end = min(p + 1, n_tiles * seq_tile, s)
+    row_tiles = (p + seq_tile) // seq_tile
+    span = max(-(-row_tiles // num_kv_splits), 1) * seq_tile
+    lo = min(bank * span, end)
+    hi = end if bank == num_kv_splits - 1 else min((bank + 1) * span, end)
+    return lo, hi
+
+
+def split_stage_plan(lo: int, hi: int, g: int) -> list:
+    """What one stage-1 block scores, stage by stage, as the kernel assigns
+    it: for each ring stage of keys [k0, k0 + 64), the (thread, position,
+    head) triples of the score phase — thread t scores key t % 64 of the
+    stage for heads t // 64, t // 64 + 4, ... (< g), positions at or past
+    ``hi`` are never scored."""
+    keys, rows = SPLIT_STAGE_KEYS, SPLIT_THREADS // SPLIT_STAGE_KEYS
+    plan = []
+    for k0 in range(lo, hi, keys):
+        plan.append([(t, k0 + t % keys, h)
+                     for t in range(SPLIT_THREADS)
+                     for h in range(t // keys, g, rows)
+                     if k0 + t % keys < hi])
+    return plan
 
 
 def staged_tiles(s: int, seq_tile: int, live_len: int | None) -> int:

@@ -24,10 +24,12 @@ def multiport_step(spec: MemorySpec, config: PortConfig,
                    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """Kernel-backed macro-cycle with the same contract as
     ``core.multiport.step``, except that ``storage`` is updated IN PLACE
-    (and returned).
+    (and returned), and that the result of a write or disabled port is a
+    read-only zero view (one element expanded to [Q, W]).
 
     Only the ENABLED ports' queues are packed and shipped to the kernel (in
-    service order), so disabled ports cost no traffic.
+    service order), payloads only for the write ports: disabled ports and
+    read ports' payloads cost no traffic. Nothing here waits on the card.
     """
     q = requests[0].queue_len
     for r in requests:
@@ -35,29 +37,29 @@ def multiport_step(spec: MemorySpec, config: PortConfig,
             raise ValueError("all port queues must share one queue length")
 
     order = config.service_order()                    # enabled, priority order
-    addrs, datas, masks = [], [], []
+    addrs, masks, payloads = [], [], []
     for p in order:
         r = requests[p]
         m = r.mask
         if config.roles[p] == WRITE:
             m = _dedup_last_wins(r.addr, m)          # last-wins in queue order
+            payloads.append(r.data.to(spec.dtype).contiguous())
         in_range = (r.addr >= 0) & (r.addr < spec.num_words)
         m = m & in_range                             # OOB lanes: dropped
         addrs.append(torch.where(m, r.addr, 0))
-        datas.append(r.data.to(spec.dtype))
         masks.append(m)
 
     addr = torch.stack(addrs).to(torch.int32)         # [P_eff, Q]
-    data = torch.stack(datas)                         # [P_eff, Q, W]
     mask = torch.stack(masks)                         # [P_eff, Q]
     packed = mps.multiport_sram_step(
-        storage, addr, data, mask,
-        roles=tuple(config.roles[p] for p in order))
-    reads = [torch.zeros((q, spec.word_width), dtype=spec.dtype,
-                         device=storage.device) for _ in range(MAX_PORTS)]
-    for slot, p in enumerate(order):
-        if config.roles[p] == READ:
-            reads[p] = packed[slot]
+        storage, addr, payloads, mask,
+        roles=tuple(config.roles[p] for p in order))  # [P_read, Q, W]
+    zeros = torch.zeros((), dtype=spec.dtype,
+                        device=storage.device).expand(q, spec.word_width)
+    reads = [zeros] * MAX_PORTS
+    read_ports = [p for p in order if config.roles[p] == READ]
+    for slot, p in enumerate(read_ports):
+        reads[p] = packed[slot]
     return storage, reads
 
 

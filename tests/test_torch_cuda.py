@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import MemorySpec, PortConfig, PortRequest, step
 from repro_torch.core.ports import READ, WRITE
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_multiport as kvmp
@@ -120,31 +121,93 @@ def test_chunk_kernel_on_card(rng, cuda_device, qdt, cdt, case):
     assert not o[off.index(-1)].float().abs().any()       # dead row: zeros
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("roles", [(WRITE, READ, WRITE, READ),
-                                   (WRITE, WRITE, READ), (READ,)])
-def test_pool_step_kernel_on_card(rng, cuda_device, dt, roles):
-    """Bit-exact, with reads of words an earlier port wrote this cycle."""
-    words, width, q = 512, 300, 64        # width not a multiple of 128
-    storage = _normal(rng, cuda_device, dt, words, width)
+def _pool_ports(rng, dev, dt, words, width, roles, q, lanes_on):
+    """Packed ports whose later ports hit half of port 0's words; write
+    lanes deduplicated (last wins); payloads for the write slots only."""
     addr = rng.integers(0, words, (len(roles), q)).astype(np.int32)
     addr[1:, : q // 2] = addr[0, : q // 2]
-    mask = rng.random((len(roles), q)) > 0.2
-    for slot, role in enumerate(roles):        # dedup write lanes, last wins
+    mask = np.zeros((len(roles), q), bool)
+    for slot, role in enumerate(roles):
+        mask[slot, rng.choice(q, lanes_on[slot], replace=False)] = True
         if role == WRITE:
             last = {w: i for i, w in enumerate(addr[slot])}
             mask[slot] &= [last[w] == i for i, w in enumerate(addr[slot])]
-    addr_t = torch.from_numpy(addr).to(cuda_device)
-    mask_t = torch.from_numpy(mask).to(cuda_device)
-    data = _normal(rng, cuda_device, dt, len(roles), q, width)
+    data = [_normal(rng, dev, dt, q, width) for r in roles if r == WRITE]
+    return (torch.from_numpy(addr).to(dev), data,
+            torch.from_numpy(mask).to(dev))
+
+
+def _pool_against_plain(storage, addr, data, mask, roles):
     st_p = storage.clone()
     before = launch_counts()["multiport_sram_step"]
-    r_k = mps.multiport_sram_step(storage, addr_t, data, mask_t, roles=roles)
+    r_k = mps.multiport_sram_step(storage, addr, data, mask, roles=roles)
     assert launch_counts()["multiport_sram_step"] == before + 1
-    r_p = mps.multiport_sram_step_plain(st_p, addr_t, data, mask_t,
-                                        roles=roles)
+    r_p = mps.multiport_sram_step_plain(st_p, addr, data, mask, roles=roles)
+    n_reads = sum(1 for r in roles if r != WRITE)
+    assert r_k.shape == (n_reads, addr.shape[1], storage.shape[1])
     assert torch.equal(storage, st_p) and torch.equal(r_k, r_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+# 300: 16-byte moves in f32, 8-byte in bf16; 11264 (the full tinyllama
+# word): 16-byte moves; 11263: 4-byte (f32) and 2-byte (bf16) moves
+@pytest.mark.parametrize("width", [300, 11264, 11263])
+@pytest.mark.parametrize("roles", [(WRITE, READ, WRITE, READ),
+                                   (WRITE, WRITE, READ), (READ,),
+                                   (READ, WRITE, READ), (READ, READ, WRITE)])
+def test_pool_step_kernel_on_card(rng, cuda_device, dt, width, roles):
+    """Bit-exact, with ports that hit words an earlier port read or wrote
+    this cycle (W->R, R->W, W->W)."""
+    words, q = 512, 64
+    storage = _normal(rng, cuda_device, dt, words, width)
+    addr, data, mask = _pool_ports(rng, cuda_device, dt, words, width, roles,
+                                   q, [52] * len(roles))
+    _pool_against_plain(storage, addr, data, mask, roles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roles,lanes_on", [((WRITE, READ), (4, 7080)),
+                                            ((WRITE,), (7080,)),
+                                            ((READ,), (9,))])
+def test_pool_step_kernel_on_card_at_the_long_call(rng, cuda_device, roles,
+                                                   lanes_on):
+    """The long path's shapes: Q 8192 over the full tinyllama pool, a decode
+    gather (4 appends, 7080 reads), a scrub of 7080 words, and a read with
+    most lanes off."""
+    words, width, q = 8192, 11264, 8192
+    storage = _normal(rng, cuda_device, "f32", words, width)
+    addr, data, mask = _pool_ports(rng, cuda_device, "f32", words, width,
+                                   roles, q, lanes_on)
+    _pool_against_plain(storage, addr, data, mask, roles)
+
+
+@pytest.mark.cuda
+def test_multiport_step_with_a_write_port_never_syncs(rng, cuda_device):
+    """``ops.multiport_step`` with write ports (deduplication included) and
+    a read port queues its work without waiting on the card."""
+    spec = MemorySpec(num_words=256, word_width=300)
+    storage = spec.init_storage(device=cuda_device)
+    reqs = []
+    for _ in range(4):
+        addr = torch.from_numpy(rng.integers(0, 300, 64).astype(np.int32))
+        reqs.append(PortRequest(addr=addr.to(cuda_device),
+                                data=_normal(rng, cuda_device, "f32", 64, 300),
+                                mask=torch.from_numpy(rng.random(64) > 0.3)
+                                .to(cuda_device)))
+    cfg = PortConfig(enabled=(True, True, True, False),
+                     roles=(WRITE, READ, WRITE, READ))
+    want, want_reads = step(spec, cfg, storage, reqs)
+    ops.multiport_step(spec, cfg, storage.clone(), reqs)     # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, reads = ops.multiport_step(spec, cfg, storage, reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    for r, w in zip(reads, want_reads):
+        assert torch.equal(r, w)
 
 
 @pytest.mark.cuda
@@ -217,6 +280,63 @@ def test_split_kv_stages_against_their_plain_versions(rng, cuda_device):
     out = kvmp.split_combine(acc, st, torch.float32, hkv)
     out_p = kvmp.split_combine_plain(acc, st, torch.float32)
     torch.testing.assert_close(out, out_p, atol=F32_TOL, rtol=F32_TOL)
+
+
+SPLIT_RING_CASES = [  # G, D, q dtype, cache dtype
+    (8, 64, "f32", "f32"), (8, 64, "bf16", "f32"),   # tinyllama's heads
+    (1, 64, "f32", "f32"), (7, 128, "f32", "f32"), (32, 128, "f32", "f32"),
+    (32, 18, "f32", "f32"),                          # element-wise loader
+    (8, 18, "bf16", "bf16"), (8, 64, "bf16", "bf16"), (7, 128, "bf16", "bf16"),
+    (32, 64, "f32", "bf16"), (8, 12, "f32", "bf16"),  # 24-byte bf16 rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,qdt,cdt", SPLIT_RING_CASES)
+@pytest.mark.parametrize("ns", [2, 8])
+def test_split_kv_ring_on_card(rng, cuda_device, g, d, qdt, cdt, ns):
+    """Stage 1's ring over a 2K context: at ns 2 a bank (1024 keys) is
+    longer than the ring, appends land on stage and bank boundaries, a dead
+    row; against the plain split version and the serial kernel, caches and
+    tile counts identical."""
+    s, hkv, tile = 2048, 2, 64
+    lens = [-1, 63, 64, 1023, 1024, 1500, 2047]
+    b = len(lens)
+    q = _normal(rng, cuda_device, qdt, b, hkv * g, d)
+    ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, cdt, b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    ck_p, cv_p, ck_1, cv_1 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    o, _, _, t = kvmp.fused_append_attend(q, ck, cv, nk, nv, ln,
+                                          seq_tile=tile, num_kv_splits=ns,
+                                          dynamic_grid=True,
+                                          return_tiles=True)
+    o_p, t_p = kvmp.fused_append_attend_split_plain(
+        q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=s // tile,
+        length_mask=True, num_kv_splits=ns)
+    o_1, _, _, t_1 = kvmp.fused_append_attend(q, ck_1, cv_1, nk, nv, ln,
+                                              seq_tile=tile,
+                                              dynamic_grid=True,
+                                              return_tiles=True)
+    tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(o.float(), o_1.float(), atol=tol, rtol=tol)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    assert torch.equal(ck, ck_1) and torch.equal(cv, cv_1)
+    assert torch.equal(t, t_p) and torch.equal(t, t_1)
+    assert not o[lens.index(-1)].float().abs().any()      # dead row: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,cache_bytes", [(8, 64, 4), (8, 64, 2),
+                                             (32, 128, 4), (1, 18, 4),
+                                             (7, 128, 2)])
+def test_split_geometry_matches_the_build(cuda_device, g, d, cache_bytes):
+    """The host-side mirror of stage 1's ring names the geometry the built
+    kernel launches with."""
+    want = kvmp.split_geometry(g, d, cache_bytes)
+    got = kvmp.split_geometry_built(g, d, cache_bytes)
+    assert got == {k: want[k] for k in got}
 
 
 FLASH_TOL = {"f32": 2e-5, "bf16": 5e-2}
