@@ -42,6 +42,12 @@ Phases (any failure exits non-zero before the final line):
    pool step on that path's largest call (the last cycle's scrub of every
    live word) and on its largest decode gather, each beside the previous
    design's time;
+4b. serve the same trace at the launcher's default ``--num-kv-splits 1``:
+   serial decode launches = 22 x decode cycles, split launches 0, greedy
+   tokens identical to the split run; the serial kernel (one clustered
+   launch) is timed on that path's own decode call beside its bound, SDPA
+   and its previous design, with its cluster size and how many such
+   clusters the card holds at once;
 5. the whole-prompt dense path at the same full width in f32 (TF32 off):
    ``forward`` over 2 x 2048 tokens, ``prefill`` of the first 1024 and 8
    teacher-forced fused decode steps, whose logits match ``forward``'s at
@@ -49,10 +55,11 @@ Phases (any failure exits non-zero before the final line):
    ``forward`` runs, flash attention computes every layer's attention
    through ``ops.flash_attention`` on that layer's own q, k, v, held
    against the model's ``chunked_causal_attention`` and its plain version
-   at 2e-5: launches = 22 (flash, the CUDA-core kernel), 0 (flash_tc) and
+   at 2e-5: launches = 22 (flash, the 3xTF32 kernel), 0 (flash_tc) and
    22 x 8 (decode). Layers 0 and 21 are then held against the plain
    version in f32 and cast to bf16, and layer 0's inputs time the kernel
-   beside its plain version, SDPA and the bound;
+   beside its plain version, SDPA and the bound (3xTF32 at the TF32 peak,
+   the f32 CUDA-core bound beside it);
 5b. the whole-prompt path at the published bf16: ``forward`` over 2 x 2048
    tokens with the tensor-core kernel computing every layer's attention,
    held against ``chunked_causal_attention`` and the plain version at
@@ -66,7 +73,9 @@ Phases (any failure exits non-zero before the final line):
    and under the seeded chaos plan 23: every invariant audit clean, every
    request served or shed exactly once, survivors' tokens identical to the
    fault-free run;
-8. print the kernel table as JSON, the card's name and power limit, and
+8. time the launch floor (an empty kernel launched through ctypes like
+   the others) and print how far the short calls lie above it;
+9. print the kernel table as JSON, the card's name and power limit, and
    finally ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -87,11 +96,13 @@ H100_F32_FLOPS = 67e12              # f32 outside the tensor cores: the
                                     # kernels' arithmetic is f32 FMA
 H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense: the least
                                     # time for bf16 inputs
-# the previous designs' times (ms) of the two redesigned kernels on the
-# calls timed below, from PERF.md's kernel table (NVIDIA H100 80GB HBM3,
-# 700.00 W): printed beside this run's
+H100_TF32_FLOPS = 495e12            # TF32 tensor cores, dense: B5's f32
+                                    # route takes 3 TF32 products per f32 one
+# earlier designs' times (ms) on the calls timed below, from PERF.md's
+# kernel table (NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's
 PREVIOUS_MS = {"pool short": 0.01007, "pool long": 1.62133,
-               "split partial": 0.03365}
+               "split partial": 0.03365, "decode short": 0.00606,
+               "decode long": 0.21770, "flash f32": 1.66050}
 F32_TOL, BF16_TOL = 1e-5, 4e-2
 # flash attention: the JAX suite's flash tolerances
 # (tests/kernels/test_attention_kernels.py, sweep and bf16 cases)
@@ -624,14 +635,53 @@ def write_long_trace(path: Path, lo: int, hi: int, seed: int) -> None:
 LONG = ["--max-len", "2048", "--max-slots", "4", "--chunk-tokens", "128"]
 
 
+LONG_TRACE = ROOT / "build" / "chip_smoke" / "long_2k.jsonl"
+
+
 def serve_long_context() -> tuple:
-    path = ROOT / "build" / "chip_smoke" / "long_2k.jsonl"
-    write_long_trace(path, 1500, 2001, seed=0)
+    write_long_trace(LONG_TRACE, 1500, 2001, seed=0)
     eng, _, counts, cap = serve_path(FULL + LONG + [
-        "--num-kv-splits", "8", "--trace", str(path)])
+        "--num-kv-splits", "8", "--trace", str(LONG_TRACE)])
     expect_launches(eng, counts)
     expect_served(eng, 4, 8)
+    return counts, cap, _tokens(eng)
+
+
+def serve_long_serial(split_tokens: dict) -> tuple:
+    """The long trace at the launcher's default ``--num-kv-splits 1``:
+    the serial kernel on every decode, the split pair never, and the split
+    run's greedy tokens."""
+    eng, _, counts, cap = serve_path(FULL + LONG + ["--trace",
+                                                    str(LONG_TRACE)])
+    if eng.num_kv_splits != 1:
+        raise AssertionError(f"the default ran {eng.num_kv_splits} splits")
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    toks = _tokens(eng)
+    if toks != split_tokens:
+        raise AssertionError(f"serial and split tokens differ on the long "
+                             f"trace: {toks} != {split_tokens}")
+    print(f"long context at --num-kv-splits 1: tokens identical to "
+          f"--num-kv-splits 8 over {sum(map(len, toks.values()))} greedy "
+          f"tokens")
     return counts, cap
+
+
+def cluster_plan(args, kw) -> tuple:
+    """(cluster size the serial kernel takes on this decode call, the
+    (row, kv head) clusters it launches, {size: clusters the card holds at
+    once})."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    q, ck = args[0], args[1]
+    b, s, hkv, d = ck.shape
+    tile, n = kvmp.launch_geometry(s, kw.get("seq_tile", 128),
+                                   kw.get("live_len"),
+                                   kw.get("dynamic_grid", False))
+
+    def fit(c):
+        return kvmp.cluster_fit(q.shape[1] // hkv, d, q.dtype, ck.dtype, c)
+    c = kvmp.cluster_size(n, tile, rows=b * hkv, fit=fit)
+    return c, b * hkv, {k: fit(k) for k in range(1, kvmp.MAX_CLUSTER + 1)}
 
 
 def _sdpa(q, k, v, mask):
@@ -897,17 +947,23 @@ def time_flash(q, k, v) -> dict:
     ms = _ms(lambda: ops.flash_attention(q, k, v, causal=True))
     plain_ms = _ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
     lib_ms = _ms(sdpa)
-    bf16 = q.dtype == torch.bfloat16
     nbytes, flops = _flash_work(q, k)
-    bound, by = _bound_ms(nbytes, flops,
-                          H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+    cores, _ = _bound_ms(nbytes, flops)      # f32 FMA on the CUDA cores
+    if q.dtype == torch.bfloat16:
+        bound, by = _bound_ms(nbytes, flops, H100_BF16_FLOPS)
+        units = "bf16 989"
+    else:   # the f32 route: 3 TF32 products for each f32 one
+        bound, by = _bound_ms(nbytes, 3 * flops, H100_TF32_FLOPS)
+        units = (f"3 x TF32 495 (the units it uses; f32 CUDA cores at 67: "
+                 f"{cores:.6f} ms)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "bound_cuda_cores_ms": cores,
             "library": f"scaled_dot_product_attention (is_causal, enable_gqa; "
                        f"max |diff| to the kernel {sdpa_err:.3g})",
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, "
-                     f"causal, {flops / 1e9:.2f} GFLOP, bound at "
-                     f"{'bf16 989' if bf16 else 'f32 67'} TFLOP/s"}
+                     f"causal, {flops / 1e9:.2f} GFLOP, bound at {units} "
+                     f"TFLOP/s"}
 
 
 WHOLE_SEQ, WHOLE_PREFIX, WHOLE_STEPS = 2048, 1024, 8
@@ -925,8 +981,15 @@ def _forward_with_b5(cfg, params, ids) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     bhsd = lambda x: x.permute(0, 2, 1, 3).contiguous()  # noqa: E731
-    kept, vs_model, vs_plain = {}, [], []
+    kept, vs_model, vs_plain, beyond = {}, [], [], []
     model_attention = A.chunked_causal_attention
+
+    def check(got, want, tol, what):
+        try:
+            return _agree(got, want, tol, tol, what)
+        except AssertionError as e:   # every layer is checked, then raised
+            beyond.append(str(e))
+            return _err(got, want)
 
     def with_b5(q, k, v, **kw):
         out = model_attention(q, k, v, **kw)
@@ -934,12 +997,12 @@ def _forward_with_b5(cfg, params, ids) -> tuple:
         qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
         got = ops.flash_attention(qb, kb, vb, causal=True)
         tol = FLASH_TOL[q.dtype]
-        vs_model.append(_agree(got, bhsd(out), tol, tol, f"flash_attention "
-                               f"{q.dtype} vs chunked_causal_attention, "
-                               f"layer {i}"))
-        vs_plain.append(_agree(got, fa.flash_attention_plain(
-            qb, kb, vb, causal=True), tol, tol, f"flash_attention "
-            f"{q.dtype} vs plain, layer {i}"))
+        vs_model.append(check(got, bhsd(out), tol, f"flash_attention "
+                              f"{q.dtype} vs chunked_causal_attention, "
+                              f"layer {i}"))
+        vs_plain.append(check(got, fa.flash_attention_plain(
+            qb, kb, vb, causal=True), tol, f"flash_attention {q.dtype} vs "
+            f"plain, layer {i}"))
         if i in (0, cfg.n_layers - 1):
             kept[i] = (qb, kb, vb)
         return out
@@ -949,6 +1012,12 @@ def _forward_with_b5(cfg, params, ids) -> tuple:
         logits, aux = M.forward(params, cfg, {"inputs": ids})
     finally:
         A.chunked_causal_attention = model_attention
+    print(f"flash attention {ids.shape[0]} x {ids.shape[1]} tokens in "
+          f"{cfg.cdtype}, max |diff| by layer: vs its plain version "
+          f"{[float(f'{e:.3g}') for e in vs_plain]}; vs "
+          f"chunked_causal_attention {[float(f'{e:.3g}') for e in vs_model]}")
+    if beyond:
+        raise AssertionError("; ".join(beyond))
     if len(vs_model) != cfg.n_layers:
         raise AssertionError(f"forward ran attention {len(vs_model)} times")
     return logits, aux, {"vs_model": max(vs_model),
@@ -1217,7 +1286,7 @@ def main() -> int:
     cap.calls.clear()
     _print_pool("the short path's typical call", found["multiport_sram_step"][0],
                 counts["multiport_sram_step"], PREVIOUS_MS["pool short"])
-    counts, cap = serve_long_context()
+    counts, cap, split_tokens = serve_long_context()
     partial, combine, sweep = time_long_decode(*cap.typical("decode"))
     long_chunk = time_chunk(*cap.typical("chunk"))
     # the pool's largest call, and its largest decode gather
@@ -1241,11 +1310,36 @@ def main() -> int:
     found["kv_decode_split_combine"] = (combine,
                                         counts["kv_decode_split_combine"])
 
+    counts, cap = serve_long_serial(split_tokens)
+    call = cap.typical("decode")
+    cap.calls.clear()
+    b1_long = time_decode(*call)
+    c, clusters, fits = cluster_plan(*call)
+    print(f"kernel kv_decode_append_attend on the long path's decode call at "
+          f"--num-kv-splits 1 (x{counts['kv_decode_append_attend']} on that "
+          f"path) [{b1_long['shape']}]: max_abs_err "
+          f"{b1_long['max_abs_err']:.3g}, kernel {b1_long['ms']:.5f} ms "
+          f"(previous design {PREVIOUS_MS['decode long']:.5f} ms), plain "
+          f"{b1_long['plain_ms']:.5f} ms, {b1_long['library']} "
+          f"{b1_long['library_ms']:.5f} ms, bound {b1_long['bound_ms']:.6f} ms "
+          f"({b1_long['bound_by']}); one launch of {clusters} clusters of "
+          f"{c} blocks; clusters the card holds at once, by size: {fits}")
+    del call
+
     counts, flash_errs, (q, k, v) = whole_prompt(dev)
     errs["flash_attention"]["whole_prompt"] = flash_errs["f32"]
     errs["flash_attention"]["vs_model"] = flash_errs["vs_model"]
     errs["flash_attention_tc"]["f32_layers_cast"] = flash_errs["bf16"]
     found["flash_attention"] = (time_flash(q, k, v), counts["flash_attention"])
+    f32_row = found["flash_attention"][0]
+    print(f"kernel flash_attention (f32 route, design: 3xTF32 on the tensor "
+          f"cores, mma.sync m16n8k8): largest |diff| to its plain version on "
+          f"the {counts['flash_attention']} whole-prompt layers "
+          f"{flash_errs['f32']:.3g} (limit {FLASH_TOL[torch.float32]}); "
+          f"layer 0 {f32_row['ms']:.5f} ms (previous design "
+          f"{PREVIOUS_MS['flash f32']:.5f} ms), bound "
+          f"{f32_row['bound_ms']:.6f} ms at 3 x TF32 495 TFLOP/s, "
+          f"{f32_row['bound_cuda_cores_ms']:.6f} ms at the f32 CUDA cores' 67")
     del q, k, v
     torch.cuda.empty_cache()
     counts, tc_errs, (q, k, v) = whole_prompt_bf16(dev)
@@ -1264,16 +1358,29 @@ def main() -> int:
           f"{wide['library']} {wide['library_ms']:.5f} ms, bound "
           f"{wide['bound_ms']:.6f} ms ({wide['bound_by']})")
 
+    floor = _ms(lambda: K._build.launch_floor(dev))
+    above = {what: found[name][0]["ms"] - floor for what, name in (
+        ("B1 short", "kv_decode_append_attend"),
+        ("B3 short", "multiport_sram_step"),
+        ("B4b", "kv_decode_split_combine"))}
+    print(f"launch floor: an empty kernel through ctypes {floor:.5f} ms per "
+          f"launch (the same timing); above it: "
+          + ", ".join(f"{k} {v:.5f} ms" for k, v in above.items()))
+
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k, launches = found[name]
         k["max_abs_err"] = max([k["max_abs_err"], *errs[name].values()])
         lib = ("n/a" if k["library_ms"] is None
                else f"{k['library_ms']:.5f} ms")
+        before = {"kv_decode_append_attend": "decode short",
+                  "flash_attention": "flash f32"}.get(name)
+        before = (f" (previous design {PREVIOUS_MS[before]:.5f} ms)"
+                  if before else "")
         print(f"kernel {name} on its path's typical call [{k['shape']}]: "
-              f"max_abs_err {k['max_abs_err']:.3g}, kernel {k['ms']:.5f} ms, "
-              f"plain {k['plain_ms']:.5f} ms, {k['library']} {lib}, bound "
-              f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+              f"max_abs_err {k['max_abs_err']:.3g}, kernel {k['ms']:.5f} ms"
+              f"{before}, plain {k['plain_ms']:.5f} ms, {k['library']} {lib}, "
+              f"bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms",

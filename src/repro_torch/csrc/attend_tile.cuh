@@ -1,5 +1,6 @@
-// The f32 register-tiled attention engine shared by B5's CUDA-core kernel
-// (flash_attention.cu) and B2's chunked prefill (kv_prefill_chunk.cu).
+// The f32 register-tiled attention engine of B2's chunked prefill
+// (kv_prefill_chunk.cu), and of nothing else: B5's f32 route
+// (flash_attention.cu) has its own tensor-core engine.
 //
 // A block of 256 threads owns BM = 64 query rows and walks its keys in
 // tiles of BN = 64. The caller fills q^T once and, per tile, k^T and v in

@@ -1,4 +1,5 @@
-// Causal (or full) GQA flash-attention forward over whole sequences.
+// Causal (or full) GQA flash-attention forward over whole sequences: the
+// f32 route, on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_kernel
 // (pallas_call in flash_attention). The TPU walks a sequential grid
@@ -10,110 +11,394 @@
 // What bounds it on an H100: operations. Causal attention at
 // q [B, H, S, D] does 4 * B * H * D * S^2 / 2 flops on 2 * B * (H + Hkv) * S
 // * D elements: at S = 2048, D = 64 that is ~800 flops per f32 byte, far
-// above the ridge of either the f32 CUDA cores (67 TFLOP/s) or the bf16
-// tensor cores (989 TFLOP/s) against 3.35 TB/s. This kernel does its
-// arithmetic as f32 FMA on the CUDA cores and takes the calls that stay off
-// the tensor cores: f32 (TF32 keeps about three digits, the f32 contract is
-// 2e-5), bf16 q over f32 k/v, and a head dim that is not a multiple of 8
-// (TMA's 16-byte row stride). bf16 q, k and v go to the tensor-core kernel
-// (flash_attention_tc.cu); kernels/flash_attention.py picks the route.
+// above the ridge. This kernel takes the calls that stay off the bf16
+// tensor-core kernel (flash_attention_tc.cu): f32, bf16 q over f32 k/v,
+// and a head dim that is not a multiple of 8; kernels/flash_attention.py
+// picks the route. Plain TF32 keeps about three digits, below the f32
+// contract (2e-5), so each product is taken as three TF32 products on
+// mma.sync.m16n8k8: with x = hi + lo, hi = tf32(x), lo = tf32(x - hi)
+// (cvt.rna's rounding, done as two integer ops), a * b ~ a_lo * b_hi +
+// a_hi * b_lo + a_hi * b_hi, summed in f32 by the tensor cores; the
+// dropped lo * lo term and lo's rounding leave about 2^-21 of |a| |b| per
+// product. The tensor cores' own f32 sums round toward zero, so a long
+// chain of MMAs into one accumulator drifts (5.6e-5 on a whole-prompt
+// layer when S ran one chain per tile and O one chain over all keys): S
+// takes one chain of MMAs from zero per 16 dims and P V one chain per
+// output tile and key tile, and the chains are added in f32 with round to
+// nearest. Its bound is 3x the f32 operations at the TF32 tensor-core peak
+// (495 TFLOP/s).
 //
-// Design: block (z, hk, b) owns BM = 64 query rows of its kv head's group,
-// where row r of the group is position r / G of head hk * G + r % G, so one
-// K/V tile in shared memory serves all G query heads (the reuse the TPU
-// kernel got from its [G, Tq, D] block). The register-tiled f32 engine of
-// attend_tile.cuh (shared with B2's chunked prefill) computes each 64-key
-// tile: a 16 x 16 thread grid with 4 x 4 score and 4 x D/16 output
-// micro-tiles, online softmax over 16-lane shuffles. Causal blocks stop at
-// their last row's position (the TPU's tile skip) and mask per element only
-// on tiles that cross the diagonal; blocks are launched longest first. k
-// and v are read in f32, sums are f32, the denominator has a floor of 1e-30
-// and the output is cast to q's dtype.
-#include "attend_tile.cuh"
+// Design: block (z, hk, b) owns BM = 128 query rows of its kv head's group
+// (64 for D > 64), where row r of the group is position r / G of head
+// hk * G + r % G, so one K/V tile in shared memory serves all G query heads
+// (the reuse the TPU kernel got from its [G, Tq, D] block) and 8 warps. Q
+// is split once into hi and lo planes in shared memory; each 64-key K and V
+// tile (32 for D > 64) comes in f32 through a cp.async double buffer (an
+// element-wise loader for bf16 k/v, rows that are not a whole number of 16
+// bytes, or unaligned bases) and is split once for the block into hi and lo
+// planes, so no warp repeats the split. Each warp owns 16 rows: S = Q K^T
+// accumulates in the m16n8 accumulator layout, the online softmax runs in
+// that layout (each row's max over the four lanes of a quad, the sum kept
+// per lane and reduced once at the end), and P is split in registers and
+// fed as the A operand of O += P V. The head dims and, in P V, the keys of
+// each 8-wide step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7): a sum
+// does not care, and then a lane's two accumulator columns are its A
+// fragment and its Q/K fragments are single 8-byte loads. Causal blocks
+// stop at their last row's position (the TPU's tile skip), a warp skips
+// tiles wholly past its rows, and only tiles that cross a warp's diagonal,
+// the ragged key tail or missing rows mask per element; blocks are
+// launched longest first. A tile takes two block barriers: landed (the next
+// tile's copies start), split. The softmax is f32 in base 2 (ex2.approx
+// on scores times log2 e), the denominator has a floor of 1e-30 and the
+// output is cast to q's dtype.
+#include "common.cuh"
 
 namespace {
 
-using namespace repro::tile;
 constexpr int MAXD = 128;
 
+// Tiles for head dims padded to DP: BM query rows of the group per block
+// (one 16-row slab per warp), BN keys per tile. Shared memory in floats:
+// Q hi and lo [BM][QP], then two stages of K hi, K lo [BN][QP] and V hi,
+// V lo [BN][VP]. QP = DP + 8 makes the 8-byte Q/K fragment loads of a half
+// warp hit 32 distinct banks; VP = DP + 4 does the same for the 4-byte V
+// loads of a warp. DP 128 takes 64 rows and 32 keys to fit 227 KB.
+template <int DP>
+struct Geo {
+  static constexpr int BM = DP <= 64 ? 128 : 64;
+  static constexpr int BN = DP <= 64 ? 64 : 32;
+  static constexpr int NWARPS = BM / 16;
+  static constexpr int THREADS = NWARPS * 32;
+  static constexpr int NT = BN / 8;       // n8 score tiles per key tile
+  static constexpr int QP = DP + 8;
+  static constexpr int VP = DP + 4;
+  static constexpr int STAGE = 2 * BN * QP + 2 * BN * VP;
+  static constexpr size_t SMEM = sizeof(float) * (2 * BM * QP + 2 * STAGE);
+};
+
+// cvt.rna.tf32.f32 for a finite x, as integer ops: round the 13 dropped
+// mantissa bits to nearest, ties away from zero (adding half a unit to the
+// magnitude carries into the kept bits); the same bits, fewer instructions
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32: the two cross terms first, then hi * hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint2 bh,
+                                     uint2 bl) {
+  mma(d, al, bh.x, bh.y);
+  mma(d, ah, bl.x, bl.y);
+  mma(d, ah, bh.x, bh.y);
+}
+
+// 2^x (ex2.approx: within 2^-22 relative; 0 for x = -inf)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// K and V rows of keys [k0, k0 + BN) as f32 into a stage's hi planes; keys
+// at or past Sk read as zeros. vec: 16-byte cp.async copies (f32 rows of a
+// whole number of 16 bytes on aligned bases), else element-wise loads.
+template <typename TK, int DP>
+__device__ __forceinline__ void load_tile(float* ks, float* vs, const TK* k,
+                                          const TK* v, size_t kv0, int k0,
+                                          int Sk, int D, bool vec) {
+  using G = Geo<DP>;
+  if constexpr (sizeof(TK) == 4) {
+    if (vec) {
+      const int chunks = D / 4;
+      for (int i = threadIdx.x; i < G::BN * chunks; i += G::THREADS) {
+        const int j = i / chunks, c = i - j * chunks, pos = k0 + j;
+        const bool valid = pos < Sk;
+        const size_t at = kv0 + (size_t)(valid ? pos : 0) * D + c * 4;
+        cp_async16(ks + j * G::QP + c * 4, k + at, valid);
+        cp_async16(vs + j * G::VP + c * 4, v + at, valid);
+      }
+      return;
+    }
+  }
+  for (int i = threadIdx.x; i < G::BN * D; i += G::THREADS) {
+    const int j = i / D, d = i - j * D, pos = k0 + j;
+    float kx = 0.f, vx = 0.f;
+    if (pos < Sk) {
+      kx = repro::to_f32(k[kv0 + (size_t)pos * D + d]);
+      vx = repro::to_f32(v[kv0 + (size_t)pos * D + d]);
+    }
+    ks[j * G::QP + d] = kx;
+    vs[j * G::VP + d] = vx;
+  }
+}
+
+// Split a landed tile once for the whole block: the f32 values in the hi
+// planes become their TF32 hi parts, the lo planes get the rest.
+template <int DP>
+__device__ __forceinline__ void split_tile(float* st) {
+  using G = Geo<DP>;
+  constexpr int C4 = DP / 4;
+  for (int i = threadIdx.x; i < 2 * G::BN * C4; i += G::THREADS) {
+    const bool is_v = i >= G::BN * C4;
+    const int r = is_v ? i - G::BN * C4 : i;
+    const int j = r / C4, c = (r - j * C4) * 4;
+    float* hi = is_v ? st + 2 * G::BN * G::QP + j * G::VP + c
+                     : st + j * G::QP + c;
+    float* lo = hi + (is_v ? G::BN * G::VP : G::BN * G::QP);
+    const float4 x = *(const float4*)hi;
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *(uint4*)hi = h;
+    *(uint4*)lo = l;
+  }
+}
+
 template <typename TQ, typename TK, int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Geo<DP>::THREADS)
 flash_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
              const TK* __restrict__ v, TQ* __restrict__ out, int Sq, int Sk,
-             int Hkv, int G, int D, float scale, int causal) {
-  constexpr int DT = DP / TX;       // output dims per thread
-  constexpr int VS = vstride<DP>();
+             int Hkv, int G, int D, float scale, int causal, int vec) {
+  using Gm = Geo<DP>;
+  constexpr int BM = Gm::BM, BN = Gm::BN, NT = Gm::NT, THREADS = Gm::THREADS;
+  constexpr int QP = Gm::QP, VP = Gm::VP, DT = DP / 8;
   extern __shared__ __align__(16) float smem[];
-  const Smem<DP> sm(smem);
+  uint32_t* qh = (uint32_t*)smem;              // [BM][QP] hi
+  uint32_t* ql = qh + BM * QP;                 // [BM][QP] lo
+  float* stage0 = smem + 2 * BM * QP;          // K hi, lo; V hi, lo
 
   const int z = gridDim.x - 1 - blockIdx.x;  // longest causal blocks first
   const int hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const int R = Sq * G, r0 = z * BM, H = Hkv * G;
   auto row_at = [&](int r) -> size_t {  // q/out offset of group row r
     const int pos = r / G, g = r - pos * G;
     return (((size_t)b * H + (size_t)hk * G + g) * Sq + pos) * D;
   };
   const size_t kv0 = ((size_t)b * Hkv + hk) * Sk * D;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  auto k_hi = [&](int i) { return stage0 + (i & 1) * Gm::STAGE; };
+  auto v_hi = [&](int i) { return k_hi(i) + 2 * BN * QP; };
 
+  // head dims past D stay zero in both stages' hi planes (the copies never
+  // reach them; the split writes their lo parts)
+  for (int i = tid; i < 2 * BN * (DP - D); i += THREADS) {
+    const int row = i / (DP - D), d = D + i - row * (DP - D);
+    k_hi(row / BN)[(row % BN) * QP + d] = 0.f;
+    v_hi(row / BN)[(row % BN) * VP + d] = 0.f;
+  }
+  const int qhi = (min(R, r0 + BM) - 1) / G;
+  const int kend = causal ? min(Sk, qhi + 1) : Sk;
+  const int ntile = (kend + BN - 1) / BN;
+  load_tile<TK, DP>(k_hi(0), v_hi(0), k, v, kv0, 0, Sk, D, vec != 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int i = tid; i < BM * DP; i += THREADS) {
     const int r = i / DP, d = i - r * DP;
-    sm.qt[d * BMP + r] = (r0 + r < R && d < D)
-                             ? repro::to_f32(q[row_at(r0 + r) + d]) : 0.f;
+    const float x = (r0 + r < R && d < D) ? repro::to_f32(q[row_at(r0 + r) + d])
+                                          : 0.f;
+    split(x, qh[r * QP + d], ql[r * QP + d]);
   }
-  Rows<DP> st;
-  st.init();
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = r0 + ty * RM + i;
-    st.qpos[i] = r < R ? r / G : -1;   // -1: past the group's last row
-  }
-  const int qlo = r0 / G, qhi = (min(R, r0 + BM) - 1) / G;
-  const int kend = causal ? min(Sk, qhi + 1) : Sk;
 
-  for (int k0 = 0; k0 < kend; k0 += BN) {
-    __syncthreads();  // the previous tile's p^T and v are consumed
-    for (int i = tid; i < BN * DP; i += THREADS) {
-      const int j = i / DP, d = i - j * DP, pos = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (pos < Sk && d < D) {
-        kx = repro::to_f32(k[kv0 + (size_t)pos * D + d]);
-        vx = repro::to_f32(v[kv0 + (size_t)pos * D + d]);
-      }
-      sm.kt[d * BNP + j] = kx;
-      sm.vs[j * VS + d] = vx;
+  // this lane's rows: gq and gq + 8 of the warp's slab; -1 past the group
+  const int w0 = r0 + warp * 16;
+  const bool w_live = w0 < R;
+  const int w_lo = w0 / G, w_hi = (min(R, w0 + 16) - 1) / G;
+  const int ra = w0 + gq, rb = ra + 8;
+  const int qa = ra < R ? ra / G : -1, qb = rb < R ? rb / G : -1;
+  const uint32_t* qha = qh + (warp * 16 + gq) * QP + 2 * tq;
+  const uint32_t* qla = ql + (warp * 16 + gq) * QP + 2 * tq;
+
+  float o[DT][4];
+#pragma unroll
+  for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < ntile; ++it) {
+    const int k0 = it * BN;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // tile it landed
+    __syncthreads();  // ... for every thread; tile it - 1 is consumed, Q's
+                      // planes are written
+    if (it + 1 < ntile) {  // in flight while tile it is split and computed
+      load_tile<TK, DP>(k_hi(it + 1), v_hi(it + 1), k, v, kv0, k0 + BN, Sk, D,
+                        vec != 0);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+    split_tile<DP>(k_hi(it));
     __syncthreads();
-    // the per-element mask: tiles that cross the diagonal, the ragged key
-    // tail, and the rows past the group's end
-    const bool masked = (causal && k0 + BN - 1 > qlo) || k0 + BN > Sk ||
-                        r0 + BM > R;
-    attend(sm, st, tx, ty, k0, kend, causal != 0, masked, scale);
+    if (w_live && (!causal || k0 <= w_hi)) {
+      const uint32_t* kh = (const uint32_t*)k_hi(it);
+      const uint32_t* kl = kh + BN * QP;
+      const uint32_t* vh = (const uint32_t*)v_hi(it);
+      const uint32_t* vl = vh + BN * VP;
+
+      // S = Q K^T, one chain of six MMAs from zero per two 8-dim steps
+      float s[NT][4], t[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = t[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        const uint2 h0 = *(const uint2*)(qha + kk * 8);
+        const uint2 h1 = *(const uint2*)(qha + 8 * QP + kk * 8);
+        const uint2 l0 = *(const uint2*)(qla + kk * 8);
+        const uint2 l1 = *(const uint2*)(qla + 8 * QP + kk * 8);
+        const uint32_t ah[4] = {h0.x, h1.x, h0.y, h1.y};
+        const uint32_t al[4] = {l0.x, l1.x, l0.y, l1.y};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int at = (n * 8 + gq) * QP + kk * 8 + 2 * tq;
+          mma3(t[n], ah, al, *(const uint2*)(kh + at),
+               *(const uint2*)(kl + at));
+          if (kk % 2 == 1 || kk == DT - 1) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[n][e] += t[n][e];
+              t[n][e] = 0.f;
+            }
+          }
+        }
+      }
+
+      // online softmax on the accumulator, in base 2 (scores times
+      // log2(e), so exp(x) = 2^(x log2 e)): s[n] holds keys k0 + 8n + 2tq
+      // and + 1 of rows a (elements 0, 1) and b (2, 3)
+      const bool masked = (causal && k0 + BN - 1 > w_lo) || k0 + BN > Sk ||
+                          w0 + 16 > R;
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + n * 8 + 2 * tq + e;
+          const bool ok_a = !masked || (qa >= 0 && key < Sk &&
+                                        (!causal || key <= qa));
+          const bool ok_b = !masked || (qb >= 0 && key < Sk &&
+                                        (!causal || key <= qb));
+          s[n][e] = ok_a ? s[n][e] * scale2 : -INFINITY;
+          s[n][e + 2] = ok_b ? s[n][e + 2] * scale2 : -INFINITY;
+          mx_a = fmaxf(mx_a, s[n][e]);
+          mx_b = fmaxf(mx_b, s[n][e + 2]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float al_a = (m_a == -INFINITY) ? 0.f : exp2_approx(m_a - mn_a);
+      const float al_b = (m_b == -INFINITY) ? 0.f : exp2_approx(m_b - mn_b);
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[n][e] =
+              (s[n][e] == -INFINITY) ? 0.f : exp2_approx(s[n][e] - mn_a);
+          s[n][e + 2] = (s[n][e + 2] == -INFINITY)
+                            ? 0.f : exp2_approx(s[n][e + 2] - mn_b);
+          sum_a += s[n][e];
+          sum_b += s[n][e + 2];
+        }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+
+      // O = alpha O + P V, P V of this tile in one chain per output tile:
+      // keys 2tq and 2tq + 1 of each 8-key step are this lane's A columns
+      // tq and tq + 4
+      float pv[DT][4];
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[dn][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t ph[4], pl[4];
+        split(s[j][0], ph[0], pl[0]);
+        split(s[j][2], ph[1], pl[1]);
+        split(s[j][1], ph[2], pl[2]);
+        split(s[j][3], ph[3], pl[3]);
+        const int at = (j * 8 + 2 * tq) * VP + gq;
+#pragma unroll
+        for (int dn = 0; dn < DT; ++dn) {
+          const int a0 = at + dn * 8;
+          mma3(pv[dn], ph, pl, make_uint2(vh[a0], vh[a0 + VP]),
+               make_uint2(vl[a0], vl[a0 + VP]));
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) {
+        o[dn][0] = fmaf(o[dn][0], al_a, pv[dn][0]);
+        o[dn][1] = fmaf(o[dn][1], al_a, pv[dn][1]);
+        o[dn][2] = fmaf(o[dn][2], al_b, pv[dn][2]);
+        o[dn][3] = fmaf(o[dn][3], al_b, pv[dn][3]);
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (st.qpos[i] < 0) continue;
-    TQ* orow = out + row_at(r0 + ty * RM + i);
-#pragma unroll
-    for (int dd = 0; dd < DT; ++dd) {
-      const int d = tx * DT + dd;
-      if (d < D) orow[d] = repro::from_f32<TQ>(st.out(i, dd));
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = dn * 8 + 2 * tq + e;
+      if (d >= D) continue;
+      if (qa >= 0) out[row_at(ra) + d] = repro::from_f32<TQ>(o[dn][e] * inv_a);
+      if (qb >= 0)
+        out[row_at(rb) + d] = repro::from_f32<TQ>(o[dn][e + 2] * inv_b);
+    }
 }
 
 template <typename TQ, typename TK, int DP>
 int launch(void* q, void* k, void* v, void* out, int B, int Hkv, int G,
            int Sq, int Sk, int D, float scale, int causal, cudaStream_t st) {
   auto kern = flash_kernel<TQ, TK, DP>;
-  constexpr size_t smem = smem_bytes<DP>();
+  constexpr size_t smem = Geo<DP>::SMEM;
   cudaError_t err = repro::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
+  const int vec = sizeof(TK) == 4 && D % 4 == 0 &&
+                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  constexpr int BM = Geo<DP>::BM;
   const int nz = (Sq * G + BM - 1) / BM;
-  kern<<<dim3(nz, Hkv, B), THREADS, smem, st>>>(
+  kern<<<dim3(nz, Hkv, B), Geo<DP>::THREADS, smem, st>>>(
       (const TQ*)q, (const TK*)k, (const TK*)v, (TQ*)out, Sq, Sk, Hkv, G, D,
-      scale, causal);
+      scale, causal, vec);
   return (int)cudaGetLastError();
 }
 
@@ -121,7 +406,6 @@ template <typename TQ, typename TK>
 int launch_d(void* q, void* k, void* v, void* out, int B, int Hkv, int G,
              int Sq, int Sk, int D, float scale, int causal, cudaStream_t st) {
 #define REPRO_ARGS q, k, v, out, B, Hkv, G, Sq, Sk, D, scale, causal, st
-  // D <= 16 pads to 32: a 16-wide instantiation spilled 4 bytes (ptxas)
   if (D <= 32) return launch<TQ, TK, 32>(REPRO_ARGS);
   if (D <= 64) return launch<TQ, TK, 64>(REPRO_ARGS);
   return launch<TQ, TK, 128>(REPRO_ARGS);
@@ -138,7 +422,7 @@ extern "C" int flash_attention(void* q, void* k, void* v, void* out, int B,
                                float scale, int causal, int q_dtype,
                                int kv_dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || G <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 ||
-      D > MAXD)
+      D > MAXD || Hkv > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_ARGS q, k, v, out, B, Hkv, G, Sq, Sk, D, scale, causal, st
@@ -152,4 +436,13 @@ extern "C" int flash_attention(void* q, void* k, void* v, void* out, int B,
     return launch_d<__nv_bfloat16, __nv_bfloat16>(REPRO_ARGS);
 #undef REPRO_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the kernel for head dim D: what
+// kernels/flash_attention.py:f32_geometry mirrors.
+extern "C" int flash_attention_smem_bytes(int D) {
+  if (D <= 0 || D > MAXD) return -1;
+  if (D <= 32) return (int)Geo<32>::SMEM;
+  if (D <= 64) return (int)Geo<64>::SMEM;
+  return (int)Geo<128>::SMEM;
 }

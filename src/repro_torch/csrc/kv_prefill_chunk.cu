@@ -17,9 +17,9 @@
 // Design: block (b, hk, z) owns BM = 64 of the C*G query rows of kv head hk
 // (row r = chunk row r / G of head hk * G + r % G), so each K/V tile in
 // shared memory serves all G query heads, and runs the register-tiled f32
-// engine of attend_tile.cuh (shared with B5's CUDA-core kernel): 64-key
-// tiles, a 16 x 16 thread grid with 4 x 4 score and 4 x D/16 output
-// micro-tiles, online softmax over 16-lane shuffles. K/V rows come in as
+// engine of attend_tile.cuh: 64-key tiles, a 16 x 16 thread grid with
+// 4 x 4 score and 4 x D/16 output micro-tiles, online softmax over 16-lane
+// shuffles. K/V rows come in as
 // 16-byte loads, one key per lane, so the transposed k^T stores hit
 // distinct banks. Row positions: qpos = offset + rel for rel < chunk_len;
 // padded rows attend as position offset. A block's keys are [0, min(its

@@ -6,7 +6,7 @@ optimizes, each beside a plain torch version of the same function:
                      serial or split-KV (partial banks + LSE combine)
   kv_prefill_chunk — fused chunked-prefill append+attend
   flash_attention  — causal GQA flash attention over whole sequences (f32
-                     CUDA cores; bf16 on the tensor cores)
+                     in 3xTF32 and bf16, both on the tensor cores)
 
 ``ops.py`` holds the public wrappers and ``ref.py`` the two-pass oracles.
 The CUDA sources live in ``repro_torch/csrc`` and are built at first use

@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("multiport_sram", "kv_multiport", "kv_multiport_split",
-           "kv_prefill_chunk", "flash_attention", "flash_attention_tc")
+           "kv_prefill_chunk", "flash_attention", "flash_attention_tc",
+           "launch_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,6 +124,20 @@ class Launcher:
             msg = library(self.source).repro_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({msg})")
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel of ``csrc/launch_floor.cu`` on ``device``'s
+    current stream, through ctypes as every kernel is launched: the floor
+    under each kernel's time. It is on no path and is not counted."""
+    lib = library("launch_floor")
+    lib.launch_floor.argtypes = [ctypes.c_void_p]
+    lib.launch_floor.restype = ctypes.c_int
+    rc = lib.launch_floor(
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"launch_floor failed: CUDA error {rc} ({msg})")
 
 
 def launch_counts() -> dict:

@@ -18,9 +18,15 @@ exactly:
   nothing, outputs zeros and services 0 tiles;
 * f32 accumulation and the ``1e-30`` floor on the softmax denominator.
 
-:func:`fused_append_attend` launches the kernel for CUDA tensors and runs
-:func:`fused_append_attend_plain` — the same function in plain torch — for
-CPU tensors.
+:func:`fused_append_attend` launches the kernel (:func:`serial_decode`) for
+CUDA tensors and runs :func:`fused_append_attend_plain` — the same function
+in plain torch — for CPU tensors. The kernel is one launch of a thread block
+cluster of C blocks per (row, kv head): block r takes bank r of C of the
+row's live keys (the split-KV partition, :func:`split_bank_range` with
+``num_kv_splits=C``) and rank 0 merges the blocks' softmax states through
+distributed shared memory. :func:`cluster_size` picks C from the staged
+tile count and how many clusters the card holds at once
+(:func:`cluster_fit`), so that the call runs in one wave.
 
 **Split-KV decode** (``num_kv_splits > 1``) replaces the JAX package's
 ``_split_kernel`` + ``_combine_kernel`` with two CUDA kernels
@@ -29,14 +35,16 @@ each row's own live tiles over ``ns`` contiguous banks and writes each
 bank's unnormalized f32 ``(acc, m, l)``; stage 2 (:func:`split_combine`)
 LSE-combines the banks. Caches and tile counts are those of the serial
 path; the output agrees with it within f32 rounding (the banks sum in
-another order). ``num_kv_splits=1`` is the serial kernel itself. Stage 1
-streams its bank's keys through a ring of shared-memory stages
+another order unless the serial kernel's cluster has ns blocks).
+``num_kv_splits=1`` is the serial kernel itself. Both kernels stream a
+bank's keys through the same ring of shared-memory stages
 (:func:`split_geometry`; :func:`split_stage_plan` mirrors which thread
 scores which key).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,7 +54,7 @@ from repro_torch.kernels.tiling import clamp_seq_tile, live_tile_bound
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = _build.Launcher(
     "kv_multiport", "kv_decode_append_attend",
-    [_vp] * 8 + [_i] * 8 + [ctypes.c_float, _i, _i, _vp])
+    [_vp] * 8 + [_i] * 8 + [ctypes.c_float, _i, _i, _i, _vp])
 SPLIT_KERNEL = _build.Launcher(
     "kv_multiport_split", "kv_decode_split_partial",
     [_vp] * 9 + [_i] * 9 + [ctypes.c_float, _i, _i, _vp])
@@ -54,21 +62,25 @@ COMBINE_KERNEL = _build.Launcher(
     "kv_multiport_split", "kv_decode_split_combine",
     [_vp] * 3 + [_i] * 6 + [_vp])
 
-# stage 1's tiling (csrc/kv_multiport_split.cu)
+# the ring of stage 1 and of the serial kernel (csrc/decode_attend.cuh)
 SPLIT_STAGE_KEYS = 64           # keys per ring stage
 SPLIT_MAX_STAGES = 4
 SPLIT_THREADS = 256
 SPLIT_SCORE_PITCH = SPLIT_STAGE_KEYS + 4    # floats per score row
 SMEM_LIMIT = 232448             # an H100 block's dynamic shared memory
+# the serial kernel's cluster (csrc/kv_multiport.cu)
+MAX_CLUSTER = 8                 # the portable cluster size
+CLUSTER_KEYS = SPLIT_MAX_STAGES * SPLIT_STAGE_KEYS  # staged keys per block
 
 
 def split_geometry(g: int, d: int, cache_bytes: int) -> dict:
-    """Stage 1's shared memory for ``g`` query heads of ``d`` dims over a
-    cache of ``cache_bytes``-byte elements: the K/V row pitch in bytes (the
-    row rounded up to 16 bytes, plus 16), the ring's stages (as many as fit,
-    at most 4), the dynamic shared memory in bytes (q [g, d] f32, scores
-    [g, 68] f32, 32 alphas, the ring), and whether rows load as 16-byte
-    ``cp.async`` copies (else element by element)."""
+    """The shared memory of a stage-1 (and serial-kernel) block for ``g``
+    query heads of ``d`` dims over a cache of ``cache_bytes``-byte
+    elements: the K/V row pitch in bytes (the row rounded up to 16 bytes,
+    plus 16), the ring's stages (as many as fit, at most 4), the dynamic
+    shared memory in bytes (q [g, d] f32, scores [g, 68] f32, 32 alphas,
+    the ring), and whether rows load as 16-byte ``cp.async`` copies (else
+    element by element)."""
     if not (0 < g <= 32 and 0 < d <= 128 and cache_bytes in (2, 4)):
         raise ValueError(f"split_geometry: G={g}, D={d}, {cache_bytes}-byte "
                          f"cache not supported")
@@ -94,11 +106,51 @@ def split_geometry_built(g: int, d: int, cache_bytes: int) -> dict:
     return {"pitch": out[0], "stages": out[1], "smem_bytes": out[2]}
 
 
+def cluster_size(n_tiles: int, seq_tile: int, rows: int = 1,
+                 fit=None) -> int:
+    """The serial kernel's cluster size C for ``n_tiles`` staged tiles of
+    ``seq_tile`` keys. The cap: one block per full ring of staged keys
+    (256), at least 1 and at most the portable 8. Given ``fit`` (c -> how
+    many clusters of c blocks the card holds at once), the largest c up to
+    the cap whose ``rows`` clusters (one per row and kv head) all run in one
+    wave; the cap when none does. Taken on the host from the staged
+    geometry, known without a sync, never from the lengths on the card."""
+    if n_tiles < 1 or seq_tile < 1:
+        raise ValueError(f"cluster_size: n_tiles={n_tiles}, "
+                         f"seq_tile={seq_tile}")
+    cap = max(1, min(MAX_CLUSTER, n_tiles * seq_tile // CLUSTER_KEYS))
+    if fit is not None:
+        for c in range(cap, 0, -1):
+            if rows <= fit(c):
+                return c
+    return cap
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_fit(g: int, d: int, q_dtype, cache_dtype, c: int,
+                device: int = 0) -> int:
+    """How many clusters of ``c`` serial-kernel blocks for ``g`` heads of
+    ``d`` dims the card ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``, a host-side query; needs the CUDA
+    toolkit and a card)."""
+    fn = _build.library("kv_multiport").kv_decode_cluster_fit
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    code = _build.DTYPE_CODE
+    with torch.cuda.device(device):
+        rc = fn(g, d, c, code[q_dtype], code[cache_dtype], ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"kv_decode_cluster_fit failed: CUDA error {rc}")
+    return out.value
+
+
 def split_bank_range(p: int, bank: int, *, seq_tile: int, n_tiles: int,
                      s: int, num_kv_splits: int) -> tuple[int, int]:
     """Keys [lo, hi) that stage 1's block ``bank`` of a row with append
     position ``p`` attends over: the TPU kernel's bank partition, cut at
-    the row's live end (empty for a dead row)."""
+    the row's live end (empty for a dead row). Block ``bank`` of the serial
+    kernel's cluster of ``num_kv_splits`` blocks takes the same keys."""
     if p < 0:
         return 0, 0
     end = min(p + 1, n_tiles * seq_tile, s)
@@ -311,8 +363,9 @@ def fused_append_attend(q: torch.Tensor, cache_k: torch.Tensor,
             q, cache_k, cache_v, new_k, new_v, cache_len, seq_tile=tile,
             n_tiles=n_tiles, length_mask=length_mask)
     elif ns == 1:
-        out, tiles = _launch(q, cache_k, cache_v, new_k, new_v, cache_len,
-                             tile, n_tiles, length_mask)
+        out, tiles = serial_decode(q, cache_k, cache_v, new_k, new_v,
+                                   cache_len, seq_tile=tile, n_tiles=n_tiles,
+                                   length_mask=length_mask)
     elif cpu:
         out, tiles = fused_append_attend_split_plain(
             q, cache_k, cache_v, new_k, new_v, cache_len, seq_tile=tile,
@@ -349,20 +402,35 @@ def _kernel_inputs(name, q, cache_k, cache_v, new_k, new_v, cache_len):
     return q, new_k, new_v, lens
 
 
-def _launch(q, cache_k, cache_v, new_k, new_v, cache_len, tile, n_tiles,
-            length_mask):
+def serial_decode(q, cache_k, cache_v, new_k, new_v, cache_len, *,
+                  seq_tile: int, n_tiles: int, length_mask: bool,
+                  cluster: int | None = None) -> tuple:
+    """Launch the serial kernel (CUDA tensors), one launch with clusters of
+    ``cluster`` blocks (default :func:`cluster_size` for this card's
+    :func:`cluster_fit`); the same function and return as
+    :func:`fused_append_attend_plain`."""
     b, s, hkv, d = cache_k.shape
     h = q.shape[1]
     code = _build.DTYPE_CODE
     q, new_k, new_v, lens = _kernel_inputs(
         "fused_append_attend", q, cache_k, cache_v, new_k, new_v, cache_len)
+    if cluster is None:
+        dev = q.device.index if q.device.index is not None else \
+            torch.cuda.current_device()
+        c = cluster_size(n_tiles, seq_tile, rows=b * hkv, fit=lambda c: (
+            cluster_fit(h // hkv, d, q.dtype, cache_k.dtype, c, dev)))
+    else:
+        c = int(cluster)
+    if not 1 <= c <= MAX_CLUSTER:
+        raise ValueError(f"serial_decode: cluster {c} outside "
+                         f"1..{MAX_CLUSTER}")
     out = torch.empty_like(q)
     tiles = torch.empty((b,), dtype=torch.int32, device=q.device)
     P = _build.ptr
     KERNEL(P(q), P(cache_k), P(cache_v), P(new_k), P(new_v), P(lens), P(out),
-           P(tiles), b, s, hkv, h // hkv, d, tile, n_tiles, int(length_mask),
-           1.0 / d ** 0.5, code[q.dtype], code[cache_k.dtype],
-           _build.stream_of(q))
+           P(tiles), b, s, hkv, h // hkv, d, seq_tile, n_tiles,
+           int(length_mask), 1.0 / d ** 0.5, c, code[q.dtype],
+           code[cache_k.dtype], _build.stream_of(q))
     return out, tiles
 
 

@@ -11,12 +11,15 @@ test_attention_kernels.py``): f32 1e-5 with TF32 off, bf16 4e-2 (flash
 attention: 2e-5 and 5e-2, that suite's flash cases). Cache updates,
 serviced-tile counts and the pool step are bit-exact.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import MemorySpec, PortConfig, PortRequest, step
 from repro_torch.core.ports import READ, WRITE
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_multiport as kvmp
 from repro_torch.kernels import kv_prefill_chunk as kvpc
@@ -437,3 +440,208 @@ def test_flash_attention_refuses_before_launching(cuda_device):
     with pytest.raises(ValueError, match="128"):
         ops.flash_attention(big.bfloat16(), big.bfloat16(), big.bfloat16())
     assert launch_counts() == before
+
+
+# ---- B1 as one clustered launch (a cluster of C blocks per row, kv head) --
+
+def _share_edge_lens(s, tile, c):
+    """Append positions at the first key of their share under C banks,
+    found through the host mirror (the appended key is always the last key
+    of its share): the two smallest and the two largest."""
+    def first_of_share(p):
+        return any(kvmp.split_bank_range(p, r, seq_tile=tile,
+                                         n_tiles=s // tile, s=s,
+                                         num_kv_splits=c)[0] == p
+                   for r in range(c))
+    edges = [p for p in range(tile, s) if first_of_share(p)]
+    return list(dict.fromkeys(edges[:2] + edges[-2:]))
+
+
+SERIAL_CASES = [  # G, D, q dtype, cache dtype
+    (8, 64, "f32", "f32"), (8, 64, "bf16", "f32"),   # tinyllama's heads
+    (8, 64, "bf16", "bf16"), (1, 64, "f32", "f32"), (32, 128, "f32", "f32"),
+    (7, 128, "bf16", "bf16"), (32, 18, "f32", "f32"),  # element-wise loader
+    (4, 12, "f32", "bf16"),                           # 24-byte bf16 rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,qdt,cdt", SERIAL_CASES)
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_serial_decode_clusters_on_card(rng, cuda_device, g, d, qdt, cdt,
+                                        cluster):
+    """B1 at the long call's context (S 2048, seq_tile 64) with a forced
+    cluster size: a dead row, appends at 0, at a share's first key and at
+    the last position, length_mask on and off; one launch a call, caches and
+    tile counts bit-identical to the plain version."""
+    s, hkv, tile = 2048, 2, 64
+    lens = [-1, 0, *_share_edge_lens(s, tile, cluster), 1500, s - 1]
+    b = len(lens)
+    q = _normal(rng, cuda_device, qdt, b, hkv * g, d)
+    nk, nv = (_normal(rng, cuda_device, cdt, b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    for length_mask in (True, False):
+        ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
+        ck_p, cv_p = ck.clone(), cv.clone()
+        before = launch_counts()
+        o, t = kvmp.serial_decode(q, ck, cv, nk, nv, ln, seq_tile=tile,
+                                  n_tiles=s // tile, length_mask=length_mask,
+                                  cluster=cluster)
+        ran = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+        assert ran == {"kv_decode_append_attend": 1}
+        o_p, t_p = kvmp.fused_append_attend_plain(
+            q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=s // tile,
+            length_mask=length_mask)
+        tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
+        torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+        assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+        assert torch.equal(t, t_p)
+        assert not o[0].float().abs().any()               # dead row: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 8])
+def test_serial_decode_equals_the_split_pair(rng, cuda_device, cluster):
+    """At the long call's shape B1 (the card's default cluster, and 8, the
+    split pair's partition at ns 8) agrees with the split pair at ns 8
+    within 1e-5; caches and tile counts identical."""
+    s, hkv, g, d, tile = 2048, 4, 8, 64, 64
+    lens = [1932, 1788, 1795, 1552]
+    b = len(lens)
+    q = _normal(rng, cuda_device, "f32", b, hkv * g, d)
+    ck, cv = (_normal(rng, cuda_device, "f32", b, s, hkv, d) for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, "f32", b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    ck_8, cv_8 = ck.clone(), cv.clone()
+    o, t = kvmp.serial_decode(q, ck, cv, nk, nv, ln, seq_tile=tile,
+                              n_tiles=s // tile, length_mask=True,
+                              cluster=cluster)
+    o_8, _, _, t_8 = kvmp.fused_append_attend(q, ck_8, cv_8, nk, nv, ln,
+                                              seq_tile=tile, dynamic_grid=True,
+                                              num_kv_splits=8,
+                                              return_tiles=True)
+    torch.testing.assert_close(o, o_8, atol=F32_TOL, rtol=F32_TOL)
+    assert torch.equal(ck, ck_8) and torch.equal(cv, cv_8)
+    assert torch.equal(t, t_8)
+
+
+@pytest.mark.cuda
+def test_serial_decode_clusters_fit_the_card(cuda_device):
+    """Clusters of every size can be resident, and the cluster the wrapper
+    picks for the long call (16 rows x kv heads over 32 staged tiles) runs
+    all 16 clusters in one wave."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for c in range(1, kvmp.MAX_CLUSTER + 1):
+        assert kvmp.cluster_fit(8, 64, bf, f32, c) >= 1
+    c = kvmp.cluster_size(32, 64, rows=16,
+                          fit=lambda c: kvmp.cluster_fit(8, 64, bf, f32, c))
+    assert c > 1 and kvmp.cluster_fit(8, 64, bf, f32, c) >= 16
+
+
+@pytest.mark.cuda
+def test_serial_decode_refuses_a_cluster_past_8(rng, cuda_device):
+    q = torch.zeros((1, 8, 64), device=cuda_device)
+    ck = torch.zeros((1, 128, 1, 64), device=cuda_device)
+    nk = torch.zeros((1, 1, 64), device=cuda_device)
+    ln = _ints(cuda_device, [3])
+    before = launch_counts()
+    with pytest.raises(ValueError, match="cluster"):
+        kvmp.serial_decode(q, ck, ck.clone(), nk, nk, ln, seq_tile=64,
+                           n_tiles=2, length_mask=True, cluster=9)
+    assert launch_counts() == before
+
+
+# ---- B5's f32 route: 3xTF32 on the tensor cores ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 333), (333, 200)])
+@pytest.mark.parametrize("qdt", ["f32", "bf16"])
+def test_flash_attention_f32_route_on_card(rng, cuda_device, d, causal, sq,
+                                           sk, qdt):
+    """The f32 kernel at G = 7 over ragged Sq != Sk both ways, f32 or bf16
+    q over f32 k/v: one launch, within 2e-5 of the plain version in f32."""
+    q = _normal(rng, cuda_device, qdt, 2, 14, sq, d)
+    k, v = (_normal(rng, cuda_device, "f32", 2, 2, sk, d) for _ in "kv")
+    before = launch_counts()
+    o = ops.flash_attention(q, k, v, causal=causal, q_tile=sq, k_tile=sk)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_tc"] == before["flash_attention_tc"]
+    assert o.dtype == q.dtype and o.shape == q.shape
+    tol = FLASH_TOL[qdt]
+    torch.testing.assert_close(
+        o.float(), fa.flash_attention_plain(q, k, v, causal=causal).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 32, 48, 64, 128])
+def test_flash_attention_f32_geometry_matches_the_build(cuda_device, d):
+    """The host-side mirror of the f32 kernel's tiles names the shared
+    memory the built kernel asks for."""
+    assert fa.f32_smem_bytes_built(d) == fa.f32_geometry(d)["smem_bytes"]
+
+
+# ---- the build, and the rows this change must not move --------------------
+
+@pytest.mark.cuda
+def test_ptxas_reports_no_spills(cuda_device):
+    """Every source built with ``-Xptxas -v``: 0 bytes of spill stores."""
+    _build.build()
+    logs = sorted(_build.BUILD_DIR.glob("*.ptxas.txt"))
+    assert {p.name.split(".")[0] for p in logs} >= set(_build.SOURCES)
+    for log in logs:
+        spills = re.findall(r"(\d+) bytes spill stores", log.read_text())
+        assert not any(int(n) for n in spills), log.name
+
+
+def _device_ms(fn, reps=20, batches=5):
+    """Device time of one call: CUDA events around ``reps`` queued calls
+    behind a spin kernel, the median over ``batches`` (chip_smoke.py's
+    timing)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[batches // 2]
+
+
+@pytest.mark.cuda
+def test_unchanged_rows_hold_their_time(rng, cuda_device):
+    """B4a and B2 on their long-path calls stay within 10 % of their
+    earlier times on an H100 80GB HBM3 (0.01506 and 0.36841 ms, PERF.md):
+    B4a's ring moved into decode_attend.cuh, B2 kept attend_tile.cuh."""
+    name = torch.cuda.get_device_name(0)
+    if "H100" not in name:
+        pytest.skip(f"the earlier times are an H100's, not a {name}'s")
+    s, hkv, g, d, tile = 2048, 4, 8, 64, 64
+    b = 4
+    q = _normal(rng, cuda_device, "bf16", b, hkv * g, d)
+    ck, cv = (_normal(rng, cuda_device, "f32", b, s, hkv, d) for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, "f32", b, hkv, d) for _ in "kv")
+    ln = _ints(cuda_device, [1932, 1788, 1795, 1552])
+    kw = dict(seq_tile=tile, n_tiles=s // tile, length_mask=True,
+              num_kv_splits=8)
+    b4a = _device_ms(lambda: kvmp.split_partials(q, ck, cv, nk, nv, ln, **kw))
+    c = 128
+    qc = _normal(rng, cuda_device, "bf16", b, c, hkv * g, d)
+    nkc, nvc = (_normal(rng, cuda_device, "f32", b, c, hkv, d) for _ in "kv")
+    of, cl = _ints(cuda_device, [1920, 1664, 1536, -1]), \
+        _ints(cuda_device, [6, 125, 10, 0])
+    b2 = _device_ms(lambda: kvpc.fused_chunk_append_attend(
+        qc, ck, cv, nkc, nvc, of, cl, seq_tile=tile, dynamic_grid=True))
+    assert b4a <= 1.10 * 0.01506, f"B4a {b4a:.5f} ms"
+    assert b2 <= 1.10 * 0.36841, f"B2 {b2:.5f} ms"

@@ -12,8 +12,9 @@ import pytest
 
 from repro_torch.kernels import kv_multiport as kvmp
 
+# the ring that stage 1 and the serial kernel share
 SOURCE = (Path(kvmp.__file__).resolve().parent.parent / "csrc"
-          / "kv_multiport_split.cu")
+          / "decode_attend.cuh")
 MAX_SCORES = 8              # heads one thread scores (G <= 32)
 
 
