@@ -97,12 +97,14 @@ H100_F32_FLOPS = 67e12              # f32 outside the tensor cores: the
 H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense: the least
                                     # time for bf16 inputs
 H100_TF32_FLOPS = 495e12            # TF32 tensor cores, dense: B5's f32
-                                    # route takes 3 TF32 products per f32 one
+                                    # route takes 3 TF32 products per f32
+                                    # one in P V
 # earlier designs' times (ms) on the calls timed below, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's
 PREVIOUS_MS = {"pool short": 0.01007, "pool long": 1.62133,
                "split partial": 0.03365, "decode short": 0.00606,
-               "decode long": 0.21770, "flash f32": 1.66050}
+               "decode long": 0.21770, "flash f32": 1.66050,
+               "flash f32 3xtf32": 0.93017}
 F32_TOL, BF16_TOL = 1e-5, 4e-2
 # flash attention: the JAX suite's flash tolerances
 # (tests/kernels/test_attention_kernels.py, sweep and bf16 cases)
@@ -128,7 +130,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "flash_attention_tc": ("src/repro_torch/csrc/flash_attention_tc.cu",
                            "src/repro/kernels/flash_attention.py:26"),
 }
-FLASH_ROUTE = {torch.float32: "flash_attention",      # f32 CUDA cores
+FLASH_ROUTE = {torch.float32: "flash_attention",      # the f32 kernel
                torch.bfloat16: "flash_attention_tc"}  # bf16 tensor cores
 
 
@@ -263,9 +265,14 @@ def _pool_agree(args, kw) -> float:
 
 
 def check_decode(dev, gen) -> dict:
+    """B1 against its plain version: the short path's geometry (128
+    positions, tile 64) at tile edges, p = 0, the last position and a dead
+    row, every mode; and the long path's (caches [*, 2048, 4, 64], tile 64)
+    at the card's own cluster size, with the long call's 16 (row, kv head)
+    clusters and with 12, where clusters of 8 fit."""
     hkv, g, d, s, tile = 4, 8, 64, 128, 64          # full tinyllama, defaults
 
-    def case(lens, qdt, cdt=torch.float32):
+    def case(lens, qdt, cdt=torch.float32, s=s):
         b = len(lens)
         rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
         return (rnd(b, hkv * g, d).to(qdt), rnd(b, s, hkv, d).to(cdt),
@@ -285,8 +292,21 @@ def check_decode(dev, gen) -> dict:
             "bf16": max(_decode_agree(case(edges, bf), dict(seq_tile=tile)),
                         _decode_agree(case(edges, bf, bf),
                                       dict(seq_tile=tile)))}
-    if errs["f32"] > F32_TOL or errs["bf16"] > BF16_TOL:
+    taken = {}
+    for lens in ([1932, 1788, 1795, 1552], [2047, 1536, -1]):
+        kw = dict(seq_tile=tile, dynamic_grid=True)
+        for name, qdt in (("long_f32", f32), ("long_bf16", bf)):
+            args = case(lens, qdt, s=2048)
+            c, clusters, _ = cluster_plan(args, kw)
+            taken[clusters] = c
+            errs[name] = max(errs.get(name, 0.0), _decode_agree(args, kw))
+    if (max(errs["f32"], errs["long_f32"]) > F32_TOL
+            or max(errs["bf16"], errs["long_bf16"]) > BF16_TOL):
         raise AssertionError(f"decode kernel disagrees: {errs}")
+    print(f"check kv_decode_append_attend at the long geometry: clusters of "
+          f"{taken[16]} blocks for 16 (row, kv head) clusters, of "
+          f"{taken[12]} for 12; max |diff| f32 {errs['long_f32']:.3g}, "
+          f"bf16 q {errs['long_bf16']:.3g}")
     return errs
 
 
@@ -457,9 +477,10 @@ def check_flash(dev, gen) -> dict:
     """Flash attention against its plain version: causal and full; Sq != Sk
     both ways (top-left mask); G 1, 3, 7, 8; D 16, 48, 64, 128; Sq and Sk
     off the tensor-core kernel's 64/128 tiles; a batch of 3; tiles of 32,
-    64, 128; Sq = q_tile; one launch per call, f32 on the CUDA-core kernel
-    and bf16 on the tensor-core one; a non-divisible shape raises before
-    any launch."""
+    64, 128; Sq = q_tile; f32 also at q and k 3.5-4x N(0, 1) (scores of
+    tens, where the softmax amplifies any rounding of the scores); one
+    launch per call, f32 on the f32 kernel and bf16 on the tensor-core one;
+    a non-divisible shape raises before any launch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, ops
     cases = [  # b, h, hkv, sq, sk, d, q_tile, k_tile
@@ -484,6 +505,21 @@ def check_flash(dev, gen) -> dict:
                 errs[name] = max(errs[name], _agree(
                     got, want, tol, tol, f"flash_attention {name} causal="
                     f"{causal} q {tuple(q.shape)} k {tuple(k.shape)}"))
+    # the f32 route at scores of tens: q and k 3-4x N(0, 1), v 3-4x
+    for b, h, hkv, sq, sk, d, qt, kt in cases[:1] + cases[-2:]:
+        for qk, vs in ((3.5, 3.0), (4.0, 4.0)):
+            rnd = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                          device=dev)
+            q, k, v = (rnd(b, h, sq, d) * qk, rnd(b, hkv, sk, d) * qk,
+                       rnd(b, hkv, sk, d) * vs)
+            got = ops.flash_attention(q, k, v, causal=True, q_tile=qt,
+                                      k_tile=kt)
+            calls[FLASH_ROUTE[torch.float32]] += 1
+            errs["f32"] = max(errs["f32"], _agree(
+                got, fa.flash_attention_plain(q, k, v, causal=True),
+                FLASH_TOL[torch.float32], FLASH_TOL[torch.float32],
+                f"flash_attention f32 at q, k {qk}x N(0, 1), v {vs}x, q "
+                f"{tuple(q.shape)} k {tuple(k.shape)}"))
     q = torch.zeros((1, 4, 96, 16), device=dev)
     try:
         ops.flash_attention(q, q[:, :2], q[:, :2], q_tile=64)
@@ -709,6 +745,11 @@ def time_decode(args, kw) -> dict:
                                    kw.get("live_len"),
                                    kw.get("dynamic_grid", False))
     err = _decode_agree(args, kw)
+    tol = F32_TOL if q.dtype == ck.dtype == torch.float32 else BF16_TOL
+    if err > tol:
+        raise AssertionError(f"decode kernel on the timed call [q {q.dtype}, "
+                             f"caches {tuple(ck.shape)} {ck.dtype}]: max "
+                             f"|diff| {err:.3g} beyond {tol}")
     ms = _ms(lambda: kvmp.fused_append_attend(*args, **kw))
     plain_ms = _ms(lambda: kvmp.fused_append_attend_plain(
         *args, seq_tile=tile, n_tiles=n,
@@ -948,22 +989,25 @@ def time_flash(q, k, v) -> dict:
     plain_ms = _ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
     lib_ms = _ms(sdpa)
     nbytes, flops = _flash_work(q, k)
-    cores, _ = _bound_ms(nbytes, flops)      # f32 FMA on the CUDA cores
+    cores, _ = _bound_ms(nbytes, flops)      # all f32 FMA on the CUDA cores
     if q.dtype == torch.bfloat16:
         bound, by = _bound_ms(nbytes, flops, H100_BF16_FLOPS)
-        units = "bf16 989"
-    else:   # the f32 route: 3 TF32 products for each f32 one
-        bound, by = _bound_ms(nbytes, 3 * flops, H100_TF32_FLOPS)
-        units = (f"3 x TF32 495 (the units it uses; f32 CUDA cores at 67: "
-                 f"{cores:.6f} ms)")
+        units = "bf16 989 TFLOP/s"
+    else:   # the f32 route: the scores' half of the operations in f32 FMA
+        # on the CUDA cores; P V's half, 3 TF32 products each, takes less on
+        # the tensor cores and can run beside it
+        bound, by = _bound_ms(nbytes, flops / 2)
+        pv_ms = 3 * flops / 2 / H100_TF32_FLOPS * 1e3
+        units = (f"the scores at the f32 CUDA cores' 67 TFLOP/s, P V at 3 x "
+                 f"TF32 495 ({pv_ms:.6f} ms), the units it uses; both "
+                 f"products on the CUDA cores {cores:.6f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "bound_cuda_cores_ms": cores,
             "library": f"scaled_dot_product_attention (is_causal, enable_gqa; "
                        f"max |diff| to the kernel {sdpa_err:.3g})",
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, "
-                     f"causal, {flops / 1e9:.2f} GFLOP, bound at {units} "
-                     f"TFLOP/s"}
+                     f"causal, {flops / 1e9:.2f} GFLOP, bound at {units}"}
 
 
 WHOLE_SEQ, WHOLE_PREFIX, WHOLE_STEPS = 2048, 1024, 8
@@ -1332,14 +1376,17 @@ def main() -> int:
     errs["flash_attention_tc"]["f32_layers_cast"] = flash_errs["bf16"]
     found["flash_attention"] = (time_flash(q, k, v), counts["flash_attention"])
     f32_row = found["flash_attention"][0]
-    print(f"kernel flash_attention (f32 route, design: 3xTF32 on the tensor "
-          f"cores, mma.sync m16n8k8): largest |diff| to its plain version on "
-          f"the {counts['flash_attention']} whole-prompt layers "
+    print(f"kernel flash_attention (f32 route, design: scores in f32 FMA on "
+          f"the CUDA cores, P V in 3xTF32 on the tensor cores, mma.sync "
+          f"m16n8k8): largest |diff| to its plain version on the "
+          f"{counts['flash_attention']} whole-prompt layers "
           f"{flash_errs['f32']:.3g} (limit {FLASH_TOL[torch.float32]}); "
-          f"layer 0 {f32_row['ms']:.5f} ms (previous design "
-          f"{PREVIOUS_MS['flash f32']:.5f} ms), bound "
-          f"{f32_row['bound_ms']:.6f} ms at 3 x TF32 495 TFLOP/s, "
-          f"{f32_row['bound_cuda_cores_ms']:.6f} ms at the f32 CUDA cores' 67")
+          f"at q, k 3.5-4x N(0, 1) within the limit (check_flash); layer 0 "
+          f"{f32_row['ms']:.5f} ms (first design {PREVIOUS_MS['flash f32']:.5f}"
+          f" ms, both products in 3xTF32 {PREVIOUS_MS['flash f32 3xtf32']:.5f}"
+          f" ms), bound {f32_row['bound_ms']:.6f} ms (scores at the CUDA "
+          f"cores' 67 TFLOP/s), {f32_row['bound_cuda_cores_ms']:.6f} ms with "
+          f"both products there")
     del q, k, v
     torch.cuda.empty_cache()
     counts, tc_errs, (q, k, v) = whole_prompt_bf16(dev)

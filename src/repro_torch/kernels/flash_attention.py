@@ -10,13 +10,14 @@ head dim alone, before the launch: bf16 q, k and v with D a multiple of 8
 (``csrc/flash_attention_tc.cu``: TMA, an mbarrier ring, ``wgmma``, P
 rounded to bf16 for the second product); everything else (f32, bf16 q over
 f32 k/v, a D that is not a multiple of 8) to the f32 kernel
-(``csrc/flash_attention.cu``), which takes both products on the tensor
-cores in 3xTF32 (``mma.sync`` m16n8k8: each operand split into two TF32
-values by ``cvt.rna``'s rounding, three products summed in f32 in short
-chains), since one TF32 product keeps only
-about three digits of the 2e-5 contract. The route keeps the name
-``"fma"`` of that kernel's first, CUDA-core design. Each has its own launch
-counter, ``flash_attention_tc`` and ``flash_attention``. Contract kept
+(``csrc/flash_attention.cu``), which takes the scores on the CUDA cores as
+f32 FMA chains over the head dims in order (the plain version's own
+rounding, which the softmax amplifies at large scores) and P V on the
+tensor cores in 3xTF32 (``mma.sync`` m16n8k8: each operand split into two
+TF32 values by ``cvt.rna``'s rounding, three products summed in f32 in
+short chains), since one TF32 product keeps only about three digits of the
+2e-5 contract. Each has its own launch counter, ``flash_attention_tc`` and
+``flash_attention``. Contract kept
 exactly: the causal mask is ``qpos >= kpos`` with both counted from 0
 (top-left aligned when Sq != Sk), scale 1/sqrt(D), sums in f32, the
 softmax denominator floored at 1e-30, the output in q's dtype.
@@ -45,9 +46,6 @@ KERNEL_TC = _build.Launcher(
     "flash_attention_tc", "flash_attention_tc",
     [_vp] * 4 + [_i] * 6 + [ctypes.c_float, _i, _vp])
 
-# the f32 kernel's tiling (csrc/flash_attention.cu, Geo<DP>)
-F32_STAGES = 2         # cp.async double buffer
-
 # the tensor-core kernel's tiling (csrc/flash_attention_tc.cu, Geo<DP>)
 TC_BLOCK_Q = 64        # query rows per CTA: one wgmma M
 TC_STAGES = 2          # K/V ring depth
@@ -55,39 +53,13 @@ TC_ATOM_COLS = 64      # bf16 columns per 128-byte swizzled row (one box)
 
 
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> str:
-    """Which kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 q,
-    k and v with D <= 128 a multiple of 8, else ``"fma"`` (the f32
-    kernel, 3xTF32 on the tensor cores)."""
+    """Which kernel a CUDA call takes: ``"tc"`` (the bf16 tensor-core
+    kernel) for bf16 q, k and v with D <= 128 a multiple of 8, else
+    ``"f32"`` (the f32 kernel)."""
     bf = torch.bfloat16
     if q_dtype == bf and kv_dtype == bf and d <= MAX_HEAD_DIM and d % 8 == 0:
         return "tc"
-    return "fma"
-
-
-def f32_geometry(d: int) -> dict:
-    """The f32 kernel's tiles for head dim ``d`` (<= 128): D padded to 32,
-    64 or 128 (the 8-deep MMA steps), query rows per block (128, one
-    16-row slab per warp; 64 at D > 64) and keys per tile (64; 32 at
-    D > 64), the row pitches in floats (Q and K: padded D + 8, V: padded
-    D + 4, so the fragment loads hit distinct banks) and the dynamic shared
-    memory in bytes (Q's hi and lo planes, two stages of K and V hi and lo
-    planes)."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"f32_geometry: D={d} outside 1..{MAX_HEAD_DIM}")
-    dp = 32 if d <= 32 else 64 if d <= 64 else 128
-    bm, bn = (128, 64) if dp <= 64 else (64, 32)
-    qp, vp = dp + 8, dp + 4
-    return {"padded_d": dp, "block_q": bm, "block_k": bn, "pitch_qk": qp,
-            "pitch_v": vp, "stages": F32_STAGES,
-            "smem_bytes": 4 * (2 * bm * qp
-                               + F32_STAGES * 2 * bn * (qp + vp))}
-
-
-def f32_smem_bytes_built(d: int) -> int:
-    """The built f32 kernel's own shared-memory size for head dim ``d``
-    (needs the CUDA toolkit): what :func:`f32_geometry` must equal."""
-    lib = _build.library("flash_attention")
-    return int(lib.flash_attention_smem_bytes(ctypes.c_int(d)))
+    return "f32"
 
 
 def tc_geometry(d: int) -> dict:

@@ -403,27 +403,19 @@ def _kernel_inputs(name, q, cache_k, cache_v, new_k, new_v, cache_len):
 
 
 def serial_decode(q, cache_k, cache_v, new_k, new_v, cache_len, *,
-                  seq_tile: int, n_tiles: int, length_mask: bool,
-                  cluster: int | None = None) -> tuple:
+                  seq_tile: int, n_tiles: int, length_mask: bool) -> tuple:
     """Launch the serial kernel (CUDA tensors), one launch with clusters of
-    ``cluster`` blocks (default :func:`cluster_size` for this card's
-    :func:`cluster_fit`); the same function and return as
-    :func:`fused_append_attend_plain`."""
+    :func:`cluster_size` blocks for this card's :func:`cluster_fit`; the
+    same function and return as :func:`fused_append_attend_plain`."""
     b, s, hkv, d = cache_k.shape
     h = q.shape[1]
     code = _build.DTYPE_CODE
     q, new_k, new_v, lens = _kernel_inputs(
         "fused_append_attend", q, cache_k, cache_v, new_k, new_v, cache_len)
-    if cluster is None:
-        dev = q.device.index if q.device.index is not None else \
-            torch.cuda.current_device()
-        c = cluster_size(n_tiles, seq_tile, rows=b * hkv, fit=lambda c: (
-            cluster_fit(h // hkv, d, q.dtype, cache_k.dtype, c, dev)))
-    else:
-        c = int(cluster)
-    if not 1 <= c <= MAX_CLUSTER:
-        raise ValueError(f"serial_decode: cluster {c} outside "
-                         f"1..{MAX_CLUSTER}")
+    dev = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    c = cluster_size(n_tiles, seq_tile, rows=b * hkv, fit=lambda c: (
+        cluster_fit(h // hkv, d, q.dtype, cache_k.dtype, c, dev)))
     out = torch.empty_like(q)
     tiles = torch.empty((b,), dtype=torch.int32, device=q.device)
     P = _build.ptr

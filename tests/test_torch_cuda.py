@@ -444,17 +444,27 @@ def test_flash_attention_refuses_before_launching(cuda_device):
 
 # ---- B1 as one clustered launch (a cluster of C blocks per row, kv head) --
 
-def _share_edge_lens(s, tile, c):
-    """Append positions at the first key of their share under C banks,
-    found through the host mirror (the appended key is always the last key
-    of its share): the two smallest and the two largest."""
+def _share_edge_lens(n_tiles, tile, c):
+    """Append positions at the first key of their share under C banks of
+    ``n_tiles`` staged tiles, found through the host mirror (the appended
+    key is always the last key of its share): the two smallest and the two
+    largest."""
+    s = n_tiles * tile
+
     def first_of_share(p):
         return any(kvmp.split_bank_range(p, r, seq_tile=tile,
-                                         n_tiles=s // tile, s=s,
+                                         n_tiles=n_tiles, s=s,
                                          num_kv_splits=c)[0] == p
                    for r in range(c))
     edges = [p for p in range(tile, s) if first_of_share(p)]
     return list(dict.fromkeys(edges[:2] + edges[-2:]))
+
+
+def _cluster_taken(q, ck, n_tiles, tile):
+    """The cluster size the wrapper takes for this call on this card."""
+    b, _, hkv, d = ck.shape
+    return kvmp.cluster_size(n_tiles, tile, rows=b * hkv, fit=lambda c: (
+        kvmp.cluster_fit(q.shape[1] // hkv, d, q.dtype, ck.dtype, c)))
 
 
 SERIAL_CASES = [  # G, D, q dtype, cache dtype
@@ -470,28 +480,32 @@ SERIAL_CASES = [  # G, D, q dtype, cache dtype
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 def test_serial_decode_clusters_on_card(rng, cuda_device, g, d, qdt, cdt,
                                         cluster):
-    """B1 at the long call's context (S 2048, seq_tile 64) with a forced
-    cluster size: a dead row, appends at 0, at a share's first key and at
-    the last position, length_mask on and off; one launch a call, caches and
-    tile counts bit-identical to the plain version."""
+    """B1 over the long call's 2048-position caches (seq_tile 64) with
+    4 C staged tiles, so that the wrapper takes clusters of C = 1, 2, 4
+    and 8 (at most 14 clusters: all fit at once): a dead row, appends at
+    0, at a share's first key and at the last staged position, length_mask
+    on and off; one launch a call, caches and tile counts bit-identical to
+    the plain version."""
     s, hkv, tile = 2048, 2, 64
-    lens = [-1, 0, *_share_edge_lens(s, tile, cluster), 1500, s - 1]
+    n_tiles = 4 * cluster
+    lens = [-1, 0, *_share_edge_lens(n_tiles, tile, cluster),
+            n_tiles * tile - 1]
     b = len(lens)
     q = _normal(rng, cuda_device, qdt, b, hkv * g, d)
     nk, nv = (_normal(rng, cuda_device, cdt, b, hkv, d) for _ in "kv")
     ln = _ints(cuda_device, lens)
     for length_mask in (True, False):
         ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
+        assert _cluster_taken(q, ck, n_tiles, tile) == cluster
         ck_p, cv_p = ck.clone(), cv.clone()
         before = launch_counts()
         o, t = kvmp.serial_decode(q, ck, cv, nk, nv, ln, seq_tile=tile,
-                                  n_tiles=s // tile, length_mask=length_mask,
-                                  cluster=cluster)
+                                  n_tiles=n_tiles, length_mask=length_mask)
         ran = {k: v - before[k] for k, v in launch_counts().items()
                if v != before[k]}
         assert ran == {"kv_decode_append_attend": 1}
         o_p, t_p = kvmp.fused_append_attend_plain(
-            q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=s // tile,
+            q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=n_tiles,
             length_mask=length_mask)
         tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
         torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
@@ -501,22 +515,25 @@ def test_serial_decode_clusters_on_card(rng, cuda_device, g, d, qdt, cdt,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [None, 8])
-def test_serial_decode_equals_the_split_pair(rng, cuda_device, cluster):
-    """At the long call's shape B1 (the card's default cluster, and 8, the
-    split pair's partition at ns 8) agrees with the split pair at ns 8
-    within 1e-5; caches and tile counts identical."""
+@pytest.mark.parametrize("lens", [[1932, 1788, 1795, 1552],
+                                  [1932, 1788, 1795]])
+def test_serial_decode_equals_the_split_pair(rng, cuda_device, lens):
+    """At the long call's shape B1 agrees with the split pair at ns 8
+    within 1e-5, caches and tile counts identical: with the long call's 16
+    (row, kv head) clusters (the card's default cluster, 6 blocks on an
+    H100) and with 12, where 8-block clusters fit and B1 takes the split
+    pair's own partition."""
     s, hkv, g, d, tile = 2048, 4, 8, 64, 64
-    lens = [1932, 1788, 1795, 1552]
     b = len(lens)
     q = _normal(rng, cuda_device, "f32", b, hkv * g, d)
     ck, cv = (_normal(rng, cuda_device, "f32", b, s, hkv, d) for _ in "kv")
     nk, nv = (_normal(rng, cuda_device, "f32", b, hkv, d) for _ in "kv")
     ln = _ints(cuda_device, lens)
+    if b * hkv < 16:
+        assert _cluster_taken(q, ck, s // tile, tile) == 8
     ck_8, cv_8 = ck.clone(), cv.clone()
     o, t = kvmp.serial_decode(q, ck, cv, nk, nv, ln, seq_tile=tile,
-                              n_tiles=s // tile, length_mask=True,
-                              cluster=cluster)
+                              n_tiles=s // tile, length_mask=True)
     o_8, _, _, t_8 = kvmp.fused_append_attend(q, ck_8, cv_8, nk, nv, ln,
                                               seq_tile=tile, dynamic_grid=True,
                                               num_kv_splits=8,
@@ -537,19 +554,6 @@ def test_serial_decode_clusters_fit_the_card(cuda_device):
     c = kvmp.cluster_size(32, 64, rows=16,
                           fit=lambda c: kvmp.cluster_fit(8, 64, bf, f32, c))
     assert c > 1 and kvmp.cluster_fit(8, 64, bf, f32, c) >= 16
-
-
-@pytest.mark.cuda
-def test_serial_decode_refuses_a_cluster_past_8(rng, cuda_device):
-    q = torch.zeros((1, 8, 64), device=cuda_device)
-    ck = torch.zeros((1, 128, 1, 64), device=cuda_device)
-    nk = torch.zeros((1, 1, 64), device=cuda_device)
-    ln = _ints(cuda_device, [3])
-    before = launch_counts()
-    with pytest.raises(ValueError, match="cluster"):
-        kvmp.serial_decode(q, ck, ck.clone(), nk, nk, ln, seq_tile=64,
-                           n_tiles=2, length_mask=True, cluster=9)
-    assert launch_counts() == before
 
 
 # ---- B5's f32 route: 3xTF32 on the tensor cores ------------------------
@@ -578,11 +582,41 @@ def test_flash_attention_f32_route_on_card(rng, cuda_device, d, causal, sq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [12, 32, 48, 64, 128])
-def test_flash_attention_f32_geometry_matches_the_build(cuda_device, d):
-    """The host-side mirror of the f32 kernel's tiles names the shared
-    memory the built kernel asks for."""
-    assert fa.f32_smem_bytes_built(d) == fa.f32_geometry(d)["smem_bytes"]
+@pytest.mark.parametrize("d", [12, 64, 128])
+@pytest.mark.parametrize("scale", [(3.0, 3.0), (3.5, 3.0), (4.0, 3.0),
+                                   (4.0, 4.0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_route_holds_at_large_scores(rng, cuda_device, d,
+                                                         scale, causal):
+    """q and k at 3-4x N(0, 1), v at 3-4x: scores of tens, where the
+    softmax turns a few units of 2^-24 in a score into 1e-5 of the output.
+    The f32 kernel at G = 7, Sq != Sk, stays within 2e-5 of the plain
+    version in f32."""
+    qk, vs = scale
+    q = _normal(rng, cuda_device, "f32", 2, 14, 333, d) * qk
+    k = _normal(rng, cuda_device, "f32", 2, 2, 200, d) * qk
+    v = _normal(rng, cuda_device, "f32", 2, 2, 200, d) * vs
+    o = ops.flash_attention(q, k, v, causal=causal, q_tile=333, k_tile=200)
+    torch.testing.assert_close(
+        o, fa.flash_attention_plain(q, k, v, causal=causal),
+        atol=FLASH_TOL["f32"], rtol=FLASH_TOL["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [(3.5, 3.0), (4.0, 4.0)])
+def test_flash_attention_f32_route_holds_at_large_scores_full_width(
+        rng, cuda_device, scale):
+    """The whole-prompt layer's shape (q [2, 32, 2048, 64], k/v [2, 4, 2048,
+    64], causal) at q, k 3.5-4x N(0, 1): within 2e-5 of the plain
+    version."""
+    qk, vs = scale
+    q = _normal(rng, cuda_device, "f32", 2, 32, 2048, 64) * qk
+    k = _normal(rng, cuda_device, "f32", 2, 4, 2048, 64) * qk
+    v = _normal(rng, cuda_device, "f32", 2, 4, 2048, 64) * vs
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(
+        o, fa.flash_attention_plain(q, k, v, causal=True),
+        atol=FLASH_TOL["f32"], rtol=FLASH_TOL["f32"])
 
 
 # ---- the build, and the rows this change must not move --------------------

@@ -30,10 +30,10 @@ f32, bf16 = torch.float32, torch.bfloat16
 @pytest.mark.parametrize("qdt,kdt,d,want", [
     (bf16, bf16, 64, "tc"), (bf16, bf16, 128, "tc"), (bf16, bf16, 16, "tc"),
     (bf16, bf16, 48, "tc"), (bf16, bf16, 8, "tc"),
-    (bf16, bf16, 12, "fma"),        # not a multiple of 8: no 16-byte rows
-    (bf16, bf16, 136, "fma"),       # past the 128 the kernel tiles
-    (f32, f32, 64, "fma"),          # f32 stays off TF32
-    (bf16, f32, 64, "fma"), (f32, bf16, 64, "fma"),
+    (bf16, bf16, 12, "f32"),        # not a multiple of 8: no 16-byte rows
+    (bf16, bf16, 136, "f32"),       # past the 128 the kernel tiles
+    (f32, f32, 64, "f32"),          # f32 stays off TF32
+    (bf16, f32, 64, "f32"), (f32, bf16, 64, "f32"),
 ])
 def test_route_is_chosen_from_dtypes_and_head_dim(qdt, kdt, d, want):
     assert fa.route(qdt, kdt, d) == want

@@ -37,8 +37,15 @@ def test_cluster_size_rejects_an_empty_geometry(n_tiles, tile):
         kvmp.cluster_size(n_tiles, tile)
 
 
+# clusters of c serial-kernel blocks an H100 80GB HBM3 holds at once at the
+# long call's heads (G 8, D 64, bf16 q over f32 caches): cluster_fit in
+# chip_smoke.py's runs (PERF.md, PR 16)
+H100_FIT = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
 @pytest.mark.parametrize("fit,want", [
-    ({8: 15, 7: 16}, 7),             # an H100 holds 15 clusters of 8
+    (H100_FIT, 6),                   # the card: 15 clusters of 7 or 8
+    ({8: 15, 7: 16}, 7),
     ({8: 16}, 8), ({8: 4, 7: 8, 6: 12, 5: 16}, 5),
     ({c: 1 for c in range(1, 9)}, 8)])   # no size fits: the cap
 def test_cluster_size_keeps_the_call_in_one_wave(fit, want):
@@ -113,15 +120,23 @@ def test_p_at_a_share_first_key_and_empty_shares():
 
 
 def test_the_long_call_splits_into_ring_sized_shares():
-    """At the long call (S 2048, tile 64, C 8) no share is longer than one
-    ring of the shared geometry (4 stages of 64 keys), so each block's keys
-    are all in flight at once."""
+    """At the long call (S 2048, tile 64, 16 clusters) the card takes C = 6:
+    every share but the last live one is a whole number of 64-key ring
+    stages, and none is longer than ceil(32 / 6) = 6 tiles (384 keys, one
+    and a half rings of the shared geometry's 4 stages), so a block's ring
+    turns over at most once."""
     s, tile = 2048, 64
-    c = kvmp.cluster_size(s // tile, tile)
+    c = kvmp.cluster_size(s // tile, tile, rows=16, fit=H100_FIT.get)
+    assert c == 6
     ring = kvmp.split_geometry(8, 64, 4)["stages"] * kvmp.SPLIT_STAGE_KEYS
+    assert ring == 256
     for p in (1552, 1788, 1795, 1932, 2047):
-        assert max(hi - lo for lo, hi in
-                   _shares(p, c, s=s, tile=tile, n_tiles=32)) <= ring
+        shares = _shares(p, c, s=s, tile=tile, n_tiles=32)
+        live = [(lo, hi) for lo, hi in shares if hi > lo]
+        for lo, hi in live[:-1]:
+            assert (hi - lo) % kvmp.SPLIT_STAGE_KEYS == 0
+        longest = max(hi - lo for lo, hi in shares)
+        assert longest <= 6 * tile and longest <= 2 * ring
 
 
 def test_the_mirror_names_the_source():
