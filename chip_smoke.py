@@ -37,7 +37,10 @@ Phases (any failure exits non-zero before the final line):
    1500-2000 tokens replayed from a trace (``--max-len 2048
    --chunk-tokens 128 --num-kv-splits 8``), split launches = 22 x decode
    cycles, serial decode launches 0; on the path's decode call time the
-   serial kernel and the split pair at 2, 4 and 8 splits, the chunk
+   serial kernel and the split pair at 2, 4 and 8 splits (stage 2 launched
+   behind stage 1 by programmatic dependent launch and, beside it, as an
+   ordinary launch; the stages timed apart; each place stage 1 may let
+   stage 2 start; stage 2's block sizes; the settings taken), the chunk
    kernel on that path's own chunk call (C = 128 over a 2K context) and the
    pool step on that path's largest call (the last cycle's scrub of every
    live word) and on its largest decode gather, each beside the previous
@@ -87,6 +90,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -102,9 +106,10 @@ H100_TF32_FLOPS = 495e12            # TF32 tensor cores, dense: B5's f32
 # earlier designs' times (ms) on the calls timed below, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's
 PREVIOUS_MS = {"pool short": 0.01007, "pool long": 1.62133,
-               "split partial": 0.03365, "decode short": 0.00606,
-               "decode long": 0.21770, "flash f32": 1.66050,
-               "flash f32 3xtf32": 0.93017}
+               "split partial": 0.03365, "split combine": 0.00654,
+               "split pair": {2: 0.05047, 4: 0.02981, 8: 0.02185},
+               "decode short": 0.00606, "decode long": 0.21770,
+               "flash f32": 1.66050, "flash f32 3xtf32": 0.93017}
 F32_TOL, BF16_TOL = 1e-5, 4e-2
 # flash attention: the JAX suite's flash tolerances
 # (tests/kernels/test_attention_kernels.py, sweep and bf16 cases)
@@ -344,10 +349,10 @@ def _split_agree(args, kw, ns: int) -> tuple[float, float]:
     return _err(o, o_p), _err(o, o_1)
 
 
-def _combine_agree(acc, stats, dtype, hkv: int) -> float:
+def _combine_agree(acc, stats, dtype) -> float:
     """Stage 2 alone against its plain version on the same partials."""
     from repro_torch.kernels import kv_multiport as kvmp
-    out = kvmp.split_combine(acc, stats, dtype, hkv)
+    out = kvmp.split_combine(acc, stats, dtype)
     out_p = kvmp.split_combine_plain(acc, stats, dtype)
     torch.cuda.synchronize()
     return _err(out, out_p)
@@ -384,7 +389,7 @@ def check_split(dev, gen) -> dict:
                 *args, seq_tile=tile, n_tiles=s // tile, length_mask=True,
                 num_kv_splits=ns)
             errs["combine"] = max(errs["combine"],
-                                  _combine_agree(acc, st, torch.float32, hkv))
+                                  _combine_agree(acc, st, torch.float32))
     e_p, e_1 = _split_agree(case(lens_sets[0], torch.float32),
                             dict(seq_tile=tile, length_mask=False), 4)
     errs["f32"] = max(errs["f32"], e_p)
@@ -781,10 +786,64 @@ def _decode_bytes(args, n_tiles_x_tile: int) -> tuple[int, int]:
     return nbytes, keys
 
 
+def _pdl_sweep(args, base, skw) -> list:
+    """The split pair at 2, 4 and 8 splits with stage 2 launched behind
+    stage 1 (programmatic dependent launch) and as an ordinary launch,
+    beside the two stages timed apart; the pair under every place stage 1
+    may let stage 2 start, and stage 2's block sizes. Returns the printed
+    lines."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    q = args[0]
+
+    def pair(k):
+        return _ms(lambda: kvmp.fused_append_attend(*args, num_kv_splits=k,
+                                                    **base))
+
+    def combine(acc, st):
+        return _ms(lambda: kvmp.split_combine(acc, st, q.dtype))
+
+    trig = {k: {} for k in SPLITS}
+    for k in SPLITS:
+        for t in kvmp.PDL_TRIGGERS:
+            with mock.patch.object(kvmp, "SPLIT_TRIGGER", t):
+                trig[k][t] = pair(k)
+    lines = []
+    for k in SPLITS:
+        kk = dict(skw, num_kv_splits=k)
+        acc, st, _ = kvmp.split_partials(*_clones(args), **kk)
+        p_ms, c_ms = _ms(lambda: kvmp.split_partials(*args, **kk)), \
+            combine(acc, st)
+        with mock.patch.object(kvmp, "COMBINE_PDL", False):
+            plain_pair, plain_c = pair(k), combine(acc, st)
+        taken = trig[k][kvmp.SPLIT_TRIGGER]
+        lines.append(
+            f"split pair at ns={k}: {taken:.5f} ms (previous design "
+            f"{PREVIOUS_MS['split pair'][k]:.5f} ms), {plain_pair:.5f} ms with "
+            f"stage 2 as an ordinary launch; stage 1 alone {p_ms:.5f} + stage "
+            f"2 alone {c_ms:.5f} = {p_ms + c_ms:.5f} ms (ordinary launch "
+            f"{plain_c:.5f}, sum {p_ms + plain_c:.5f} ms)")
+    lines.append(
+        f"stage 1's trigger of stage 2 (taken: {kvmp.SPLIT_TRIGGER!r}), pair "
+        "ms by placement: " + "; ".join(
+            f"ns={k} " + ", ".join(f"{t} {v:.5f}" for t, v in trig[k].items())
+            for k in SPLITS))
+    ns = skw["num_kv_splits"]
+    acc, st, _ = kvmp.split_partials(*_clones(args), **skw)
+    blocks = {}
+    for n in (32, 64, 128, 256):
+        with mock.patch.object(kvmp, "COMBINE_THREADS", n):
+            blocks[n] = (pair(ns), combine(acc, st))
+    lines.append(
+        f"stage 2's block size (taken: {kvmp.COMBINE_THREADS} threads) at "
+        f"ns={ns}, pair / stage 2 alone ms: " + ", ".join(
+            f"{n} {a:.5f} / {c:.5f}" for n, (a, c) in blocks.items()))
+    return lines
+
+
 def time_long_decode(args, kw) -> tuple:
     """The serial kernel and the split pair at 2, 4 and 8 splits on the
     long-context path's decode call, and the path's own split count stage
-    by stage. Returns (partial row, combine row, sweep line)."""
+    by stage. Returns (partial row, combine row, printed lines)."""
     from repro_torch.kernels import kv_multiport as kvmp
     q, ck, ln = args[0], args[1], args[5]
     b, s, hkv, d = ck.shape
@@ -798,16 +857,14 @@ def time_long_decode(args, kw) -> tuple:
     nbytes, keys = _decode_bytes(args, n * tile)
     flops = 4 * h * d * keys
     serial_ms = _ms(lambda: kvmp.fused_append_attend(*args, **base))
-    pair_ms = {k: _ms(lambda k=k: kvmp.fused_append_attend(
-        *args, num_kv_splits=k, **base)) for k in SPLITS}
     skw = dict(seq_tile=tile, n_tiles=n,
                length_mask=base.get("length_mask", True), num_kv_splits=ns)
     partial_ms = _ms(lambda: kvmp.split_partials(*args, **skw))
     geo = kvmp.split_geometry(h // hkv, d, ck.element_size())
     partial_plain_ms = _ms(lambda: kvmp.split_partials_plain(*args, **skw))
     acc, st, _ = kvmp.split_partials(*_clones(args), **skw)
-    err_combine = _combine_agree(acc, st, q.dtype, hkv)
-    combine_ms = _ms(lambda: kvmp.split_combine(acc, st, q.dtype, hkv))
+    err_combine = _combine_agree(acc, st, q.dtype)
+    combine_ms = _ms(lambda: kvmp.split_combine(acc, st, q.dtype))
     combine_plain_ms = _ms(lambda: kvmp.split_combine_plain(acc, st, q.dtype))
     lib_ms = _decode_library_ms(args)
     part_bytes = b * ns * h * (d + 2) * 4
@@ -817,16 +874,18 @@ def time_long_decode(args, kw) -> tuple:
     c_bound, c_by = _bound_ms(part_bytes + out_bytes, 6 * b * ns * h * d)
     shape = (f"q {tuple(q.shape)} {q.dtype}, caches {tuple(ck.shape)} "
              f"{ck.dtype}, lens {ln.tolist()}, {ns} splits")
-    sweep = (f"long-context decode [{shape}]: serial kernel {serial_ms:.5f} "
-             f"ms (bound {serial_bound:.6f} ms, bytes); split pair "
-             + ", ".join(f"ns={k} {v:.5f} ms" for k, v in pair_ms.items())
-             + f"; SDPA (attend only) {lib_ms:.5f} ms; stage 1 alone at "
-             f"ns={ns} {partial_ms:.5f} ms (previous design "
-             f"{PREVIOUS_MS['split partial']:.5f} ms; bound {p_bound:.6f} ms, "
-             f"{p_by}; ring of {geo['stages']} stages of "
-             f"{kvmp.SPLIT_STAGE_KEYS} keys, {geo['smem_bytes']} B of shared "
-             f"memory, {'16-byte cp.async' if geo['vector_loader'] else 'element-wise'} "
-             f"loader)")
+    lines = [
+        f"long-context decode [{shape}]: serial kernel {serial_ms:.5f} ms "
+        f"(bound {serial_bound:.6f} ms, bytes); SDPA (attend only) "
+        f"{lib_ms:.5f} ms; stage 1 alone at ns={ns} {partial_ms:.5f} ms "
+        f"(previous design {PREVIOUS_MS['split partial']:.5f} ms; bound "
+        f"{p_bound:.6f} ms, {p_by}; ring of {geo['stages']} stages of "
+        f"{kvmp.SPLIT_STAGE_KEYS} keys, {geo['smem_bytes']} B of shared "
+        f"memory, {'16-byte cp.async' if geo['vector_loader'] else 'element-wise'} "
+        f"loader); stage 2 alone {combine_ms:.5f} ms (previous design "
+        f"{PREVIOUS_MS['split combine']:.5f} ms; bound {c_bound:.7f} ms, "
+        f"{c_by})",
+        *_pdl_sweep(args, base, skw)]
     partial = {"max_abs_err": err_pair, "ms": partial_ms,
                "plain_ms": partial_plain_ms, "bound_ms": p_bound,
                "bound_by": p_by, "library_ms": lib_ms,
@@ -836,7 +895,7 @@ def time_long_decode(args, kw) -> tuple:
                "plain_ms": combine_plain_ms, "bound_ms": c_bound,
                "bound_by": c_by, "library_ms": None,
                "library": "no single PyTorch call", "shape": shape}
-    return partial, combine, sweep
+    return partial, combine, lines
 
 
 def time_chunk(args, kw) -> dict:
@@ -1337,7 +1396,7 @@ def main() -> int:
     long_pool = time_pool(*cap.largest("pool", _lanes_on))
     gather = time_pool(*cap.largest("pool", _read_lanes_on))
     cap.calls.clear()
-    print(sweep)
+    print("\n".join(sweep))
     _print_pool("the long-context path's largest call", long_pool,
                 counts["multiport_sram_step"], PREVIOUS_MS["pool long"])
     _print_pool("the long-context path's largest decode gather", gather,

@@ -390,20 +390,34 @@ __device__ __forceinline__ bool is_finite(float x) {
   return x > -INFINITY && x < INFINITY;
 }
 
-// One step of the LSE merge of bank states in bank order (the TPU
-// kernel's combine): the running max rescale with its guards (safe = m_new
-// or 0 when both are empty; alpha, beta = 0 for an empty side), so
-// exp(-inf - -inf) never appears.
+// The weights of one step of the LSE merge of bank states in bank order
+// (the TPU kernel's combine): the running max rescale with its guards
+// (safe = m_new or 0 when both are empty; alpha, beta = 0 for an empty
+// side), so exp(-inf - -inf) never appears. m_run becomes the new max.
+__device__ __forceinline__ void merge_weights(float& m_run, float m_s,
+                                              float& alpha, float& beta) {
+  const float m_new = fmaxf(m_run, m_s);
+  const float safe = is_finite(m_new) ? m_new : 0.f;
+  alpha = is_finite(m_run) ? expf(m_run - safe) : 0.f;
+  beta = is_finite(m_s) ? expf(m_s - safe) : 0.f;
+  m_run = m_new;
+}
+
+// run * alpha + x * beta: the update of l and of every acc dim, one
+// expression so that each takes the same rounding wherever it is merged
+__device__ __forceinline__ float rescale(float run, float alpha, float x,
+                                         float beta) {
+  return run * alpha + x * beta;
+}
+
+// One merge step of one acc dim and its row's (m, l).
 __device__ __forceinline__ void merge(float& m_run, float& l_run,
                                       float& a_run, float m_s, float l_s,
                                       float a_s) {
-  const float m_new = fmaxf(m_run, m_s);
-  const float safe = is_finite(m_new) ? m_new : 0.f;
-  const float alpha = is_finite(m_run) ? expf(m_run - safe) : 0.f;
-  const float beta = is_finite(m_s) ? expf(m_s - safe) : 0.f;
-  a_run = a_run * alpha + a_s * beta;
-  l_run = l_run * alpha + l_s * beta;
-  m_run = m_new;
+  float alpha, beta;
+  merge_weights(m_run, m_s, alpha, beta);
+  a_run = rescale(a_run, alpha, a_s, beta);
+  l_run = rescale(l_run, alpha, l_s, beta);
 }
 
 }  // namespace decode

@@ -5,8 +5,9 @@ optimizes, each beside a plain torch version of the same function:
   kv_multiport     — fused decode append+attend over the multi-port KV cache,
                      serial or split-KV (partial banks + LSE combine)
   kv_prefill_chunk — fused chunked-prefill append+attend
-  flash_attention  — causal GQA flash attention over whole sequences (f32
-                     in 3xTF32 and bf16, both on the tensor cores)
+  flash_attention  — causal GQA flash attention over whole sequences (f32:
+                     scores on the CUDA cores, P V in 3xTF32; bf16 on the
+                     tensor cores)
 
 ``ops.py`` holds the public wrappers and ``ref.py`` the two-pass oracles.
 The CUDA sources live in ``repro_torch/csrc`` and are built at first use

@@ -280,9 +280,89 @@ def test_split_kv_stages_against_their_plain_versions(rng, cuda_device):
     assert torch.equal(torch.isinf(st[..., 0]), torch.isinf(st_p[..., 0]))
     torch.testing.assert_close(st, st_p, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(acc, acc_p, atol=1e-4, rtol=1e-5)
-    out = kvmp.split_combine(acc, st, torch.float32, hkv)
+    out = kvmp.split_combine(acc, st, torch.float32)
     out_p = kvmp.split_combine_plain(acc, st, torch.float32)
     torch.testing.assert_close(out, out_p, atol=F32_TOL, rtol=F32_TOL)
+
+
+def _partials(rng, dev, b, ns, h, d):
+    """Stage-1 partials on the card: bank maxima shifted by -80, 0 or +80
+    (exp underflows between banks), row 0 dead (every bank empty), row 1
+    with empty banks between live ones, other banks empty at random; an
+    empty bank is (acc 0, m -inf, l 0)."""
+    m = rng.normal(size=(b, ns, h)) * 3 \
+        + rng.choice([-80.0, 0.0, 80.0], size=(b, ns, 1))
+    l = rng.uniform(0.5, 40.0, size=(b, ns, h))
+    acc = rng.normal(size=(b, ns, h, d)) * l[..., None]
+    empty = rng.random((b, ns)) < 0.3
+    empty[0] = True
+    empty[1] = np.arange(ns) % 2 == 1
+    empty[1, -1] = False
+    m[empty], l[empty], acc[empty] = -np.inf, 0.0, 0.0
+    stats = np.stack([m, l], axis=-1)
+    return (torch.from_numpy(acc.astype(np.float32)).to(dev),
+            torch.from_numpy(stats.astype(np.float32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [12, 18, 64, 128])
+@pytest.mark.parametrize("g", [1, 7, 8, 32])
+@pytest.mark.parametrize("ns", [1, 2, 3, 8, 17, 64])
+def test_split_combine_on_card(rng, cuda_device, ns, g, d, dt):
+    """Stage 2 alone against its plain version on the same partials: one
+    chunk of banks, several and a ragged last one (17, 64); 4-dim threads
+    and 1-dim threads (D 12 / 18); dead rows give zeros."""
+    acc, st = _partials(rng, cuda_device, b=3, ns=ns, h=2 * g, d=d)
+    out = kvmp.split_combine(acc, st, DT[dt])
+    want = kvmp.split_combine_plain(acc, st, DT[dt])
+    tol = F32_TOL if dt == "f32" else BF16_TOL
+    assert out.dtype == DT[dt]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert not out[0].float().abs().any()
+
+
+@pytest.mark.cuda
+def test_split_combine_on_card_off_the_vector_boundary(rng, cuda_device):
+    """acc 4 bytes off a 16-byte boundary: 1-dim threads at D = 64."""
+    acc, st = _partials(rng, cuda_device, b=3, ns=8, h=16, d=64)
+    buf = torch.empty(acc.numel() + 1, device=cuda_device)
+    off = buf[1:].view(acc.shape)
+    off.copy_(acc)
+    torch.testing.assert_close(kvmp.split_combine(off, st, torch.float32),
+                               kvmp.split_combine_plain(acc, st,
+                                                        torch.float32),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_split_pairs_back_to_back_read_their_own_partials(rng, cuda_device):
+    """200 split decodes queued on one stream with no sync between them,
+    at the long call's shape: each stage 2 starts behind its stage 1
+    (programmatic dependent launch) and must read that stage 1's
+    partials, not the last step's in the same reused buffers. Every
+    output equals the plain split path's at 1e-5, caches identical."""
+    s, hkv, g, d, tile, ns, steps = 2048, 4, 8, 64, 64, 8, 200
+    lens0 = np.array([1500, 1200, 1700, 1600])
+    b = len(lens0)
+    ck, cv = (_normal(rng, cuda_device, "f32", b, s, hkv, d) for _ in "kv")
+    ck_p, cv_p = ck.clone(), cv.clone()
+    qs = _normal(rng, cuda_device, "f32", steps, b, hkv * g, d)
+    nks, nvs = (_normal(rng, cuda_device, "f32", steps, b, hkv, d)
+                for _ in "kv")
+    lens = [_ints(cuda_device, (lens0 + i).tolist()) for i in range(steps)]
+    kw = dict(seq_tile=tile, dynamic_grid=True, num_kv_splits=ns)
+    torch.cuda.synchronize()
+    got = [kvmp.fused_append_attend(qs[i], ck, cv, nks[i], nvs[i], lens[i],
+                                    **kw)[0] for i in range(steps)]
+    torch.cuda.synchronize()
+    for i in range(steps):
+        want, _ = kvmp.fused_append_attend_split_plain(
+            qs[i], ck_p, cv_p, nks[i], nvs[i], lens[i], seq_tile=tile,
+            n_tiles=s // tile, length_mask=True, num_kv_splits=ns)
+        torch.testing.assert_close(got[i], want, atol=F32_TOL, rtol=F32_TOL,
+                                   msg=lambda m, i=i: f"step {i}: {m}")
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
 
 
 SPLIT_RING_CASES = [  # G, D, q dtype, cache dtype

@@ -5,7 +5,9 @@ the same numpy-drawn inputs as the JAX ``fused_append_attend(
 num_kv_splits=ns)`` in interpret mode, on the ragged cases of
 tests/kernels/test_split_kv.py: outputs agree at f32 1e-5 (each side sums
 its banks in its own order), caches and serviced tiles are identical, and
-``num_kv_splits=1`` is the serial path bit for bit. At engine level the
+``num_kv_splits=1`` is the serial path bit for bit. Stage 2 alone (the
+plain combine) takes the same partials as the JAX ``_combine_kernel``
+launched the way the split path launches it. At engine level the
 port with ``num_kv_splits=4`` matches the JAX engine on the workload of
 tests/serve/test_engine_dynamic.py: tokens and every tile counter,
 the critical-path chains included. The CUDA kernels are held against the
@@ -18,9 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from repro.configs import registry as jreg
+from repro.kernels.kv_multiport import _combine_kernel as j_combine_kernel
 from repro.kernels.kv_multiport import fused_append_attend as j_fused
+from repro.kernels.tiling import LANE, SUBLANE, word_pad
 from repro.models import init_params as j_init
 from repro.serve.engine import MultiPortEngine as JEngine
 from repro_torch.configs import registry as treg
@@ -122,6 +127,64 @@ def test_split_stages_compose_and_dead_rows_zero(rng):
         *[torch.from_numpy(a.copy()) for a in arrs], lens, seq_tile=8,
         dynamic_grid=True, num_kv_splits=4)
     assert torch.equal(out, ref)
+
+
+def _partials(rng, b, ns, h, d):
+    """Stage-1 partials [b, ns, h, d] / [b, ns, h, 2]: bank maxima shifted
+    by -80, 0 or +80 (so exp underflows between banks), row 0 dead (every
+    bank empty), row 1 with empty banks between live ones, other banks
+    empty at random; an empty bank is (acc 0, m -inf, l 0)."""
+    m = rng.normal(size=(b, ns, h)) * 3 \
+        + rng.choice([-80.0, 0.0, 80.0], size=(b, ns, 1))
+    l = rng.uniform(0.5, 40.0, size=(b, ns, h))
+    acc = rng.normal(size=(b, ns, h, d)) * l[..., None]
+    empty = rng.random((b, ns)) < 0.3
+    empty[0] = True
+    empty[1] = np.arange(ns) % 2 == 1
+    empty[1, -1] = False
+    m[empty], l[empty], acc[empty] = -np.inf, 0.0, 0.0
+    stats = np.stack([m, l], axis=-1)
+    return acc.astype(np.float32), stats.astype(np.float32)
+
+
+def _j_combine(acc, stats):
+    """The JAX package's stage 2 launched as its split path launches it
+    (``kv_multiport.py``'s second ``pallas_call``): word-padded partials
+    acc [b, ns * Hp, Dp] and stats [b, ns * Hp, LANE] (m, l in columns 0,
+    1; padded heads empty), one program per row, in interpret mode."""
+    b, ns, h, d = acc.shape
+    hp, dp = word_pad(h, SUBLANE), word_pad(d)
+    a = np.zeros((b, ns, hp, dp), np.float32)
+    a[:, :, :h, :d] = acc
+    st = np.zeros((b, ns, hp, LANE), np.float32)
+    st[..., 0] = -np.inf
+    st[:, :, :h, :2] = stats
+    out = pl.pallas_call(
+        functools.partial(j_combine_kernel, num_kv_splits=ns),
+        grid=(b,),
+        in_specs=[pl.BlockSpec((1, ns * hp, dp), lambda bb: (bb, 0, 0)),
+                  pl.BlockSpec((1, ns * hp, LANE), lambda bb: (bb, 0, 0))],
+        out_specs=pl.BlockSpec((1, hp, dp), lambda bb: (bb, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, hp, dp), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(a.reshape(b, ns * hp, dp)),
+      jnp.asarray(st.reshape(b, ns * hp, LANE)))
+    return np.asarray(out)[:, :h, :d]
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 8, 17])
+def test_split_combine_matches_jax_combine_kernel(rng, ns):
+    """Stage 2 alone: the plain combine (what the CUDA combine is held
+    to on the card) against the JAX ``_combine_kernel`` on the same
+    partials, at f32 1e-5; dead rows are zeros on both sides."""
+    acc, stats = _partials(rng, b=5, ns=ns, h=6, d=12)
+    want = _j_combine(acc, stats)
+    got = kvmp.split_combine_plain(torch.from_numpy(acc),
+                                   torch.from_numpy(stats),
+                                   torch.float32).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+    assert not got[0].any() and not want[0].any()
+    assert np.isfinite(got).all()
 
 
 def test_ops_routes_splits_to_the_fused_path_only(rng):
