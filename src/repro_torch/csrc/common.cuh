@@ -47,14 +47,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // kernel before it on the stream still runs; grid_dependency_wait() is
 // cudaGridDependencySynchronize(): it returns once that kernel has
 // completed and its writes are visible, so it must come before the first
-// read of anything the kernel before wrote. launch_dependents() is
-// cudaTriggerProgrammaticLaunchCompletion(): once every block of the
-// kernel before has called it or exited, the dependent may start.
+// read of anything the kernel before wrote.
 __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // Dynamic shared memory above the 48 KB default needs an explicit opt-in.

@@ -28,11 +28,6 @@
 // bank empty. Block (hk 0, split 0) writes the serviced-tile count with the
 // serial kernel's formula.
 //
-// Stage 1 may let stage 2 start early (programmatic dependent launch,
-// below): trigger = TRIGGER_START calls launch_dependents() at the top,
-// TRIGGER_STORED after store_state, TRIGGER_NONE never (the dependent
-// then starts as the blocks exit).
-//
 // Stage 2 is latency, not bytes: it moves ns * (D + 2) floats per (row,
 // head), a few kilobytes, so its time is its launch plus the chain of
 // L2 round trips each thread waits on. One thread owns VEC = 4
@@ -47,21 +42,23 @@
 // (m = -inf) gives zeros.
 //
 // Stage 2 is launched with cudaLaunchAttributeProgrammaticStreamSerialization
-// behind stage 1: its blocks may be resident while stage 1 runs, do their
-// index math, and wait in grid_dependency_wait() before they read or write
-// global memory, so stage 2's launch overlaps stage 1's tail instead of
-// following its drain.
+// behind stage 1: its launch is processed while stage 1 runs, its blocks
+// do their index math and wait in grid_dependency_wait() before they read
+// or write global memory, so stage 2's launch overlaps stage 1's tail
+// instead of following its drain. Stage 1 never calls
+// griddepcontrol.launch_dependents: stage 2's blocks then start as stage
+// 1's blocks exit. Calling it at stage 1's start let stage 2's waiting
+// blocks slow stage 1; calling it after store_state bought nothing
+// (PERF.md). Stage 2 runs blocks of COMBINE_THREADS (128, the
+// fastest of 32 to 256 on an H100).
 #include "decode_attend.cuh"
 
 namespace {
 
 using namespace repro::decode;
 
-// where stage 1 calls launch_dependents() (kernels/kv_multiport.py names
-// them in PDL_TRIGGERS)
-constexpr int TRIGGER_NONE = 0, TRIGGER_START = 1, TRIGGER_STORED = 2;
-constexpr int COMBINE_CHUNK = 8;         // banks loaded before a merge step
-constexpr int MAX_COMBINE_THREADS = 256;
+constexpr int COMBINE_CHUNK = 8;    // banks loaded before a merge step
+constexpr int COMBINE_THREADS = 128;
 
 template <typename TQ, typename TC>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -72,9 +69,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  int32_t* __restrict__ tiles, int S, int Hkv, int G, int D,
                  int seq_tile, int n_tiles, int length_mask, int ns,
                  float scale, int pitch, int fixed, int stage_bytes,
-                 int stages, int vec, int trigger) {
+                 int stages, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if (trigger == TRIGGER_START) repro::launch_dependents();
   const int b = blockIdx.x, hk = blockIdx.y, s = blockIdx.z;
   const int H = Hkv * G;
   const size_t head0 = ((size_t)b * ns + s) * H + (size_t)hk * G;
@@ -92,7 +88,6 @@ __global__ void __launch_bounds__(THREADS, 1)
          b, hk, p, lo, hi, S, Hkv, G, D, scale, pitch, fixed, stage_bytes,
          stages, vec != 0, st);
   store_state(st, acc_out + head0 * D, stats_out + head0 * 2, G, D);
-  if (trigger == TRIGGER_STORED) repro::launch_dependents();
 }
 
 // VEC floats from p: one 16-byte (or 4-byte) load through L2
@@ -110,7 +105,7 @@ __device__ __forceinline__ void load_cg(const float* p, float* x) {
 }
 
 template <typename TQ, int VEC>
-__global__ void __launch_bounds__(MAX_COMBINE_THREADS)
+__global__ void __launch_bounds__(COMBINE_THREADS)
     combine_kernel(const float* __restrict__ acc,
                    const float* __restrict__ stats, TQ* __restrict__ out,
                    int H, int D, int ns, int total) {
@@ -162,15 +157,14 @@ __global__ void __launch_bounds__(MAX_COMBINE_THREADS)
 
 template <typename TQ, int VEC>
 int launch_combine(const float* acc, const float* stats, void* out, int H,
-                   int D, int ns, int total, int threads, int pdl,
-                   cudaStream_t st) {
+                   int D, int ns, int total, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((total + threads - 1) / threads);
-  cfg.blockDim = dim3(threads);
+  cfg.gridDim = dim3((total + COMBINE_THREADS - 1) / COMBINE_THREADS);
+  cfg.blockDim = dim3(COMBINE_THREADS);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = pdl;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, combine_kernel<TQ, VEC>,
@@ -184,7 +178,7 @@ template <typename TQ, typename TC>
 int launch_split(void* q, void* ck, void* cv, void* nk, void* nv, void* lens,
                  void* acc, void* stats, void* tiles, int B, int S, int Hkv,
                  int G, int D, int seq_tile, int n_tiles, int length_mask,
-                 int ns, float scale, int trigger, cudaStream_t st) {
+                 int ns, float scale, cudaStream_t st) {
   const Geometry g = geometry(G, D, (int)sizeof(TC));
   if (g.stages < 2) return (int)cudaErrorInvalidValue;
   const int vec = vector_rows(ck, cv, nk, nv, D, (int)sizeof(TC));
@@ -195,7 +189,7 @@ int launch_split(void* q, void* ck, void* cv, void* nk, void* nv, void* lens,
       (const TQ*)q, (TC*)ck, (TC*)cv, (const TC*)nk, (const TC*)nv,
       (const int32_t*)lens, (float*)acc, (float*)stats, (int32_t*)tiles, S,
       Hkv, G, D, seq_tile, n_tiles, length_mask, ns, scale, g.pitch, g.fixed,
-      g.stage_bytes, g.stages, vec, trigger);
+      g.stage_bytes, g.stages, vec);
   return (int)cudaGetLastError();
 }
 
@@ -204,21 +198,19 @@ int launch_split(void* q, void* ck, void* cv, void* nk, void* nv, void* lens,
 // Stage 1. q [B, Hkv*G, D] (q_dtype); caches [B, S, Hkv, D] (cache_dtype,
 // updated in place); new_k/new_v [B, Hkv, D] (cache_dtype); lens/tiles [B]
 // int32; acc [B, ns, Hkv*G, D] and stats [B, ns, Hkv*G, 2] (m, l) f32
-// partials, written in full. n_tiles is the staged tile count; trigger
-// one of TRIGGER_NONE/START/STORED (where stage 1 lets stage 2 start).
+// partials, written in full. n_tiles is the staged tile count.
 extern "C" int kv_decode_split_partial(void* q, void* ck, void* cv, void* nk,
                                        void* nv, void* lens, void* acc,
                                        void* stats, void* tiles, int B, int S,
                                        int Hkv, int G, int D, int seq_tile,
                                        int n_tiles, int length_mask, int ns,
-                                       float scale, int trigger, int q_dtype,
+                                       float scale, int q_dtype,
                                        int cache_dtype, void* stream) {
-  if (bad_geometry(B, Hkv, G, D, seq_tile) || ns < 1 || ns > 65535 ||
-      trigger < TRIGGER_NONE || trigger > TRIGGER_STORED)
+  if (bad_geometry(B, Hkv, G, D, seq_tile) || ns < 1 || ns > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_ARGS q, ck, cv, nk, nv, lens, acc, stats, tiles, B, S, Hkv, G, \
-                   D, seq_tile, n_tiles, length_mask, ns, scale, trigger, st
+                   D, seq_tile, n_tiles, length_mask, ns, scale, st
   if (q_dtype == REPRO_F32 && cache_dtype == REPRO_F32)
     return launch_split<float, float>(REPRO_ARGS);
   if (q_dtype == REPRO_BF16 && cache_dtype == REPRO_F32)
@@ -232,17 +224,13 @@ extern "C" int kv_decode_split_partial(void* q, void* ck, void* cv, void* nk,
 }
 
 // Stage 2. acc [B, ns, H, D] and stats [B, ns, H, 2] f32 as stage 1 wrote
-// them (stats 8-byte aligned); out [B, H, D] (out_dtype); threads per
-// block a multiple of 32 up to MAX_COMBINE_THREADS. pdl = 1 launches it as
-// the programmatic dependent of the kernel before it on the stream, 0 as
-// an ordinary launch (the comparison chip_smoke.py times).
+// them (stats 8-byte aligned); out [B, H, D] (out_dtype). Launched as
+// the programmatic dependent of the kernel before it on the stream.
 extern "C" int kv_decode_split_combine(void* acc, void* stats, void* out,
                                        int B, int H, int D, int ns,
-                                       int out_dtype, int threads, int pdl,
-                                       void* stream) {
-  if (B <= 0 || H <= 0 || D <= 0 || ns < 1 || threads < 32 ||
-      threads > MAX_COMBINE_THREADS || threads % 32 || (pdl & ~1) ||
-      (uintptr_t)stats % 8 || (size_t)B * H * D > 0x7fffffff ||
+                                       int out_dtype, void* stream) {
+  if (B <= 0 || H <= 0 || D <= 0 || ns < 1 || (uintptr_t)stats % 8 ||
+      (size_t)B * H * D > 0x7fffffff ||
       (out_dtype != REPRO_F32 && out_dtype != REPRO_BF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -251,7 +239,7 @@ extern "C" int kv_decode_split_combine(void* acc, void* stats, void* out,
                     (uintptr_t)out % out_vec == 0;
   const int total = B * H * D / (vec4 ? 4 : 1);
 #define REPRO_ARGS (const float*)acc, (const float*)stats, out, H, D, ns, \
-                   total, threads, pdl, st
+                   total, st
   if (out_dtype == REPRO_F32)
     return vec4 ? launch_combine<float, 4>(REPRO_ARGS)
                 : launch_combine<float, 1>(REPRO_ARGS);

@@ -35,12 +35,12 @@ each row's own live tiles over ``ns`` contiguous banks and writes each
 bank's unnormalized f32 ``(acc, m, l)``; stage 2 (:func:`split_combine`)
 LSE-combines the banks, one thread per 4 dims of a (row, head) that loads
 a chunk of 8 banks before it merges them in bank order. Stage 2 is
-launched as stage 1's programmatic dependent: its blocks may start while
-stage 1 runs and wait on the card for stage 1's partials, so its launch
-overlaps stage 1's tail (stage 1 lets it start where
-:data:`SPLIT_TRIGGER` says). Caches and tile counts are those of the
-serial path; the output agrees with it within f32 rounding (the banks sum
-in another order unless the serial kernel's cluster has ns blocks).
+launched as stage 1's programmatic dependent: the card processes its
+launch while stage 1 runs and its blocks wait on the card for stage 1's
+partials, so its launch overlaps stage 1's tail. Caches and tile counts
+are those of the serial path; the output agrees with it within f32
+rounding (the banks sum in another order unless the serial kernel's
+cluster has ns blocks).
 ``num_kv_splits=1`` is the serial kernel itself. Both kernels stream a
 bank's keys through the same ring of shared-memory stages
 (:func:`split_geometry`; :func:`split_stage_plan` mirrors which thread
@@ -62,10 +62,10 @@ KERNEL = _build.Launcher(
     [_vp] * 8 + [_i] * 8 + [ctypes.c_float, _i, _i, _i, _vp])
 SPLIT_KERNEL = _build.Launcher(
     "kv_multiport_split", "kv_decode_split_partial",
-    [_vp] * 9 + [_i] * 9 + [ctypes.c_float, _i, _i, _i, _vp])
+    [_vp] * 9 + [_i] * 9 + [ctypes.c_float, _i, _i, _vp])
 COMBINE_KERNEL = _build.Launcher(
     "kv_multiport_split", "kv_decode_split_combine",
-    [_vp] * 3 + [_i] * 7 + [_vp])
+    [_vp] * 3 + [_i] * 5 + [_vp])
 
 # the ring of stage 1 and of the serial kernel (csrc/decode_attend.cuh)
 SPLIT_STAGE_KEYS = 64           # keys per ring stage
@@ -73,15 +73,6 @@ SPLIT_MAX_STAGES = 4
 SPLIT_THREADS = 256
 SPLIT_SCORE_PITCH = SPLIT_STAGE_KEYS + 4    # floats per score row
 SMEM_LIMIT = 232448             # an H100 block's dynamic shared memory
-# Stage 2's launch (csrc/kv_multiport_split.cu), each setting chosen by
-# the measurement chip_smoke.py prints beside its alternatives: launched as
-# stage 1's programmatic dependent (False: an ordinary launch); where
-# stage 1 lets it start: never (stage 2 starts as stage 1's blocks exit),
-# at stage 1's start, or after stage 1 has stored its partials; its block.
-COMBINE_PDL = True
-PDL_TRIGGERS = {"none": 0, "start": 1, "stored": 2}
-SPLIT_TRIGGER = "none"
-COMBINE_THREADS = 128
 # the serial kernel's cluster (csrc/kv_multiport.cu)
 MAX_CLUSTER = 8                 # the portable cluster size
 CLUSTER_KEYS = SPLIT_MAX_STAGES * SPLIT_STAGE_KEYS  # staged keys per block
@@ -458,17 +449,16 @@ def split_partials(q, cache_k, cache_v, new_k, new_v, cache_len, *,
     SPLIT_KERNEL(P(q), P(cache_k), P(cache_v), P(new_k), P(new_v), P(lens),
                  P(acc), P(stats), P(tiles), b, s, hkv, h // hkv, d,
                  seq_tile, n_tiles, int(length_mask), num_kv_splits,
-                 1.0 / d ** 0.5, PDL_TRIGGERS[SPLIT_TRIGGER], code[q.dtype],
-                 code[cache_k.dtype], _build.stream_of(q))
+                 1.0 / d ** 0.5, code[q.dtype], code[cache_k.dtype],
+                 _build.stream_of(q))
     return acc, stats, tiles
 
 
 def split_combine(acc: torch.Tensor, stats: torch.Tensor,
                   out_dtype) -> torch.Tensor:
     """Launch stage 2 of split-KV decode (CUDA tensors) as the programmatic
-    dependent of the kernel before it on the stream, normally stage 1
-    (:data:`COMBINE_PDL`); the same function as
-    :func:`split_combine_plain`."""
+    dependent of the kernel before it on the stream, normally stage 1; the
+    same function as :func:`split_combine_plain`."""
     b, ns, h, d = acc.shape
     if out_dtype not in _build.DTYPE_CODE:
         raise ValueError(f"split_combine: {out_dtype} not supported")
@@ -481,6 +471,5 @@ def split_combine(acc: torch.Tensor, stats: torch.Tensor,
         raise ValueError("split_combine: stats must be 8-byte aligned")
     out = torch.empty((b, h, d), dtype=out_dtype, device=acc.device)
     COMBINE_KERNEL(_build.ptr(acc), _build.ptr(stats), _build.ptr(out), b, h,
-                   d, ns, _build.DTYPE_CODE[out_dtype], COMBINE_THREADS,
-                   int(COMBINE_PDL), _build.stream_of(acc))
+                   d, ns, _build.DTYPE_CODE[out_dtype], _build.stream_of(acc))
     return out

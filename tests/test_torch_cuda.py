@@ -338,10 +338,13 @@ def test_split_combine_on_card_off_the_vector_boundary(rng, cuda_device):
 @pytest.mark.cuda
 def test_split_pairs_back_to_back_read_their_own_partials(rng, cuda_device):
     """200 split decodes queued on one stream with no sync between them,
-    at the long call's shape: each stage 2 starts behind its stage 1
-    (programmatic dependent launch) and must read that stage 1's
-    partials, not the last step's in the same reused buffers. Every
-    output equals the plain split path's at 1e-5, caches identical."""
+    at the long call's shape, while a spin kernel holds the card: the card
+    then runs the 400 launches back to back, so each stage 2's launch is
+    processed while its stage 1 runs (programmatic dependent launch), and
+    it must read that stage 1's partials, not the last step's in the same
+    reused buffers. The test checks that the host queued every step before
+    the spin ended. Every output equals the plain split path's at 1e-5,
+    caches identical."""
     s, hkv, g, d, tile, ns, steps = 2048, 4, 8, 64, 64, 8, 200
     lens0 = np.array([1500, 1200, 1700, 1600])
     b = len(lens0)
@@ -352,10 +355,17 @@ def test_split_pairs_back_to_back_read_their_own_partials(rng, cuda_device):
                 for _ in "kv")
     lens = [_ints(cuda_device, (lens0 + i).tolist()) for i in range(steps)]
     kw = dict(seq_tile=tile, dynamic_grid=True, num_kv_splits=ns)
+    kvmp.fused_append_attend(qs[0], ck.clone(), cv.clone(), nks[0], nvs[0],
+                             lens[0], **kw)     # build and load the kernels
     torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)            # about half a second
+    spun = torch.cuda.Event()
+    spun.record()
     got = [kvmp.fused_append_attend(qs[i], ck, cv, nks[i], nvs[i], lens[i],
                                     **kw)[0] for i in range(steps)]
+    queued_ahead = not spun.query()
     torch.cuda.synchronize()
+    assert queued_ahead, "the card reached the steps before they were queued"
     for i in range(steps):
         want, _ = kvmp.fused_append_attend_split_plain(
             qs[i], ck_p, cv_p, nks[i], nvs[i], lens[i], seq_tile=tile,
