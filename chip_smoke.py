@@ -74,6 +74,25 @@ Phases (any failure exits non-zero before the final line):
    and under the seeded chaos plan 23: every invariant audit clean, every
    request served or shed exactly once, survivors' tokens identical to the
    fault-free run;
+7b. serve deepseek-moe-16b at its published widths (bf16, 28 layers, 64
+   routed experts top-6 of 1408 + 2 shared, random weights from seed 0)
+   through the launcher at the short path's settings: every request
+   served, B1 = 28 x decode cycles, B2 = 28 x prefill cycles, B3 =
+   traversals, split pair and flash 0; one decode cycle's 28 MoE layers
+   timed on their own inputs (and the expert einsums alone) beside their
+   byte bound; peak memory;
+7c. B1, B2 and B3 on that path's calls (G 1, D 128; B3 on its largest
+   decode gather at a 114688-float word), each held against its plain
+   version and timed beside its bound and library call;
+7d. the MoE tokens in f32 (TF32 off) at the published widths and 2 of the
+   28 layers (f32 fits only so): fused == reference == split 2;
+7e. qwen2-vl-7b (M-RoPE, embedding input) and musicgen-large (sinusoidal
+   positions, embedding input), one after the other, through the model
+   entry points: ``prefill_chunk`` of 128 seeded embedding rows x 2 and 8
+   ``decode_step``s at the published widths in bf16 (B2 = L, B1 = 8 L,
+   logits finite), then in f32 at 2 layers multiport == reference
+   (argmax, 1e-4), and qwen2-vl-7b's ``forward`` == ``prefill`` on a
+   4 x 4 patch grid's (t, h, w) positions;
 8. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -1313,6 +1332,386 @@ def chaos_open_loop() -> None:
           f"{eng.stalled_retirements} stalled retirements")
 
 
+# ---- phases 7b-7e: the MoE family, and the VLM and audio stems ----------
+
+MOE = ["--arch", "deepseek-moe-16b", "--no-reduced", "--device", "cuda"]
+SHORT = ["--requests", "4", "--max-new", "8", "--seed", "0"]
+# f32 at the published widths fits the card only at reduced depth: the 28
+# layers in f32 are 67.5 GB of weights
+F32_LAYERS = 2
+# the model entry points of the embedding-input families: a prefill chunk
+# of 128 embedding rows for 2 sequences, then 8 decode steps
+FAMILY_ROWS, FAMILY_CHUNK, FAMILY_STEPS, FAMILY_CACHE = 2, 128, 8, 256
+# model entry points, multiport against reference in f32 (TF32 off): the
+# tolerance of tests/test_torch_models.py
+ENTRY_TOL = 1e-4
+
+
+def _gib(nbytes: int) -> str:
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def _tree_layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _tree_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _depth_cut(n_layers: int):
+    """The launcher's config with its depth cut to ``n_layers``, for the
+    f32 runs at published widths (restored by the caller)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    orig = serve.arch_config
+    serve.arch_config = lambda args: dataclasses.replace(orig(args),
+                                                         n_layers=n_layers)
+    return orig
+
+
+def serve_moe() -> tuple:
+    """deepseek-moe-16b at its published widths (bf16, random weights from
+    seed 0) through the launcher at the short path's settings, with every
+    launch count set to 0 just before it and read just after: B1 = 28 x
+    decode cycles, B2 = 28 x prefill cycles, B3 = traversals, the split
+    pair and flash 0. One decode cycle's 28 MoE layers are kept and timed
+    on the served weights beside their byte bound. Returns (launch counts,
+    the captured kernel calls)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import mlp
+    cfg = serve.arch_config(serve.parse_args(MOE))
+    decode_x = []
+    moe_ffn = mlp.moe_ffn
+
+    def keep(p, x, moe, compute_dtype=None):
+        if x.shape[1] == 1:                       # a decode step's layer
+            decode_x.append(x.clone())
+            del decode_x[:-cfg.n_layers]
+        return moe_ffn(p, x, moe, compute_dtype)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mlp.moe_ffn = keep
+    try:
+        eng, _, counts, cap = serve_path(MOE + SHORT)
+    finally:
+        mlp.moe_ffn = moe_ffn
+    took = time.perf_counter() - t0
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    peak = torch.cuda.max_memory_allocated()
+    moe = eng.params["layers"]["moe"]
+    layers = [_tree_layer(moe, i) for i in range(cfg.n_layers)]
+
+    def cycle():
+        for p, x in zip(layers, decode_x):
+            mlp.moe_ffn(p, x, cfg.moe, compute_dtype=cfg.cdtype)
+    ms = _ms(cycle, reps=5, batches=5)
+    x0 = decode_x[0]
+    b = x0.shape[0]
+    m = cfg.moe
+    cap_slots = int(max(1, round(m.top_k / m.n_experts * m.capacity_factor)))
+    buf = torch.zeros((b, m.n_experts, cap_slots, cfg.d_model),
+                      dtype=cfg.cdtype, device=x0.device)
+
+    def expert_products():      # moe_ffn's three einsums, every layer
+        for p in layers:
+            h = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+            torch.einsum("becd,edf->becf", buf, p["w_up"])
+            torch.einsum("becf,efd->becd", h, p["w_down"])
+    products_ms = _ms(expert_products, reps=5, batches=5)
+    # the same cycle as one CUDA graph: the device's time alone, without
+    # the host issuing each layer's few dozen small ops
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cycle()
+    graph_ms = _ms(graph.replay, reps=5, batches=5)
+    nbytes = _tree_bytes(moe) + 2 * cfg.n_layers * x0.numel() * \
+        x0.element_size()
+    # every expert's capacity slots run (the formulation computes them all)
+    flops = cfg.n_layers * 2 * 3 * cfg.d_model * m.d_expert * (
+        b * m.n_experts * cap_slots + b * m.n_shared)
+    bound, by = _bound_ms(nbytes, flops, H100_BF16_FLOPS)
+    # what routing needs: each layer's distinct top-k experts' weights, and
+    # top_k + n_shared expert products a token
+    routed = [int(mlp.moe_ffn(p, x, m, compute_dtype=cfg.cdtype)[2]
+                  .unique().numel()) for p, x in zip(layers, decode_x)]
+    expert_bytes = 3 * cfg.d_model * m.d_expert * moe["w_gate"].element_size()
+    r_bytes = nbytes - (cfg.n_layers * m.n_experts - sum(routed)) * \
+        expert_bytes
+    r_flops = cfg.n_layers * 2 * 3 * cfg.d_model * m.d_expert * b * (
+        m.top_k + m.n_shared)
+    r_bound, r_by = _bound_ms(r_bytes, r_flops, H100_BF16_FLOPS)
+    toks = sum(len(r.generated) for r in eng.finished)
+    print(f"MoE serve [deepseek-moe-16b, published widths, bf16]: {toks} "
+          f"tokens over {eng.cycles} macro-cycles ({eng.prefill_steps} "
+          f"prefill, {eng.decode_steps} decode), {took:.2f}s host clock "
+          f"with the init (the launcher's tok/s line above times the serve "
+          f"alone); peak memory {_gib(peak)} (weights "
+          f"{_gib(_tree_bytes(eng.params))}, pool "
+          f"{_gib(_tree_bytes(eng.pool.storage))})")
+    print(f"MoE layers of one decode cycle ({cfg.n_layers} x moe_ffn on "
+          f"x {tuple(x0.shape)} {x0.dtype}, capacity {cap_slots}, all "
+          f"{m.n_experts} experts' slots computed): {ms:.5f} ms issued "
+          f"op by op as served, {graph_ms:.5f} ms replayed as one CUDA "
+          f"graph (the device alone), the three expert einsums alone "
+          f"{products_ms:.5f} ms; bound of every expert's slots (the JAX "
+          f"formulation) {bound:.6f} ms ({by}: {nbytes} B of routers, "
+          f"experts and shared experts read once, {flops / 1e9:.2f} GFLOP); "
+          f"bound of the routed experts alone {r_bound:.6f} ms ({r_by}: "
+          f"{min(routed)}-{max(routed)} of {m.n_experts} experts routed a "
+          f"layer, {r_bytes} B, {r_flops / 1e9:.2f} GFLOP)")
+    del eng, moe, layers, decode_x, buf, graph
+    torch.cuda.empty_cache()
+    return counts, cap
+
+
+def _hold_split_pair(args, kw, splits) -> tuple[float, float]:
+    """The split pair on a captured decode call at each of ``splits``,
+    against its plain version and the serial kernel (``_split_agree``),
+    and stage 2 alone against its plain version on that call's partials.
+    Returns (largest pair error, largest stage 2 error)."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    base = {k: v for k, v in kw.items() if k != "num_kv_splits"}
+    tile, n = kvmp.launch_geometry(args[1].shape[1], base.get("seq_tile", 128),
+                                   base.get("live_len"),
+                                   base.get("dynamic_grid", False))
+    pair = combine = 0.0
+    for ns in splits:
+        pair = max(pair, *_split_agree(args, base, ns))
+        acc, st, _ = kvmp.split_partials(
+            *_clones(args), seq_tile=tile, n_tiles=n,
+            length_mask=base.get("length_mask", True), num_kv_splits=ns)
+        combine = max(combine, _combine_agree(acc, st, args[0].dtype))
+    return pair, combine
+
+
+def moe_rows(counts: dict, cap) -> dict:
+    """B1 on deepseek's decode call, B2 on its prefill chunk (D = 128) and
+    B3 on its largest decode gather (W = 114688), each held against its
+    plain version and timed beside its bound and library call; and the
+    split pair at 2, 4 and 8 splits on that decode call against its plain
+    version. Returns the errors by kernel."""
+    errs = {}
+    for name, row, calls in (
+            ("kv_decode_append_attend", time_decode(*cap.typical("decode")),
+             counts["kv_decode_append_attend"]),
+            ("kv_chunk_append_attend", time_chunk(*cap.typical("chunk")),
+             counts["kv_chunk_append_attend"]),
+            ("multiport_sram_step",
+             time_pool(*cap.largest("pool", _read_lanes_on)),
+             counts["multiport_sram_step"])):
+        lib = row["library"]
+        errs[name] = row["max_abs_err"]
+        print(f"kernel {name} on the deepseek-moe-16b path's "
+              f"{'largest decode gather' if 'sram' in name else 'typical call'}"
+              f" (x{calls} on that path) [{row['shape']}]: max_abs_err "
+              f"{row['max_abs_err']:.3g}, kernel {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.5f} ms, {lib} {row['library_ms']:.5f} ms, "
+              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    args, kw = cap.typical("decode")
+    errs["kv_decode_split_partial"], errs["kv_decode_split_combine"] = \
+        _hold_split_pair(args, kw, SPLITS)
+    q, ck = args[0], args[1]
+    tol = F32_TOL if q.dtype == ck.dtype == torch.float32 else BF16_TOL
+    if max(errs.values()) > tol:
+        raise AssertionError(f"a kernel disagrees with its plain version on "
+                             f"the deepseek-moe-16b path (limit {tol}): "
+                             f"{errs}")
+    print(f"split pair at ns {SPLITS} on the deepseek-moe-16b path's decode "
+          f"call [q {tuple(q.shape)} {q.dtype}, caches {tuple(ck.shape)} "
+          f"{ck.dtype}]: against its plain version and the serial kernel "
+          f"{errs['kv_decode_split_partial']:.3g}, stage 2 alone "
+          f"{errs['kv_decode_split_combine']:.3g} (limit {tol})")
+    del args, kw
+    cap.calls.clear()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def moe_identity() -> dict:
+    """deepseek-moe-16b in f32 at its published widths and 2 layers (TF32
+    off), each run through the launcher with the launch counts set to 0
+    just before it and read just after: fused (B1 = 2 x decode cycles,
+    split pair 0) == reference (no kernel launched) == split-KV at 2
+    splits (B4a = B4b = 2 x decode cycles, B1 0) tokens. B1 and B2 on the
+    fused run's calls, and the split pair on the split run's decode call,
+    are held against their plain versions. Returns those errors by
+    kernel."""
+    from repro_torch.launch import serve
+    orig = _depth_cut(F32_LAYERS)
+    toks, errs = {}, {}
+    try:
+        for name, extra in (("pallas", []),
+                            ("reference", ["--kernel-mode", "reference"]),
+                            ("split 2", ["--num-kv-splits", "2"])):
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            eng, _, counts, cap = serve_path(MOE + ["--dtype", "float32"] +
+                                             SHORT + extra)
+            took = time.perf_counter() - t0
+            expect_served(eng, 4, 8)
+            if name == "reference":
+                if any(counts.values()):
+                    raise AssertionError(f"the reference run launched "
+                                         f"kernels: {counts}")
+            else:
+                expect_launches(eng, counts)
+            toks[name] = _tokens(eng)
+            if name == "pallas":
+                errs["kv_decode_append_attend"] = _decode_agree(
+                    *cap.typical("decode"))
+                errs["kv_chunk_append_attend"] = _chunk_agree(
+                    *cap.typical("chunk"))
+            elif name == "split 2":
+                pair, comb = _hold_split_pair(*cap.typical("decode"), (2,))
+                errs["kv_decode_split_partial"] = pair
+                errs["kv_decode_split_combine"] = comb
+            print(f"MoE f32 ({F32_LAYERS} of 28 layers), {name}: "
+                  f"{eng.cycles} cycles, {eng.pool.traversals} pool "
+                  f"traversals, launches {counts}, {took:.2f}s, peak memory "
+                  f"{_gib(torch.cuda.max_memory_allocated())}")
+            del eng, cap
+            torch.cuda.empty_cache()
+    finally:
+        serve.arch_config = orig
+    if max(errs.values()) > F32_TOL:
+        raise AssertionError(f"a kernel disagrees with its plain version on "
+                             f"the MoE f32 path: {errs}")
+    if toks["pallas"] != toks["reference"]:
+        raise AssertionError(f"MoE fused and reference tokens differ: {toks}")
+    if toks["split 2"] != toks["pallas"]:
+        raise AssertionError(f"MoE split and serial tokens differ: {toks}")
+    print(f"MoE f32 token identity fused == reference == split 2 over "
+          f"{sum(map(len, toks['pallas'].values()))} greedy tokens (depth "
+          f"reduced to {F32_LAYERS} layers so that f32 fits; widths as "
+          f"published); against their plain versions on those runs' calls "
+          f"(G 1, D 128, f32): {errs}")
+    return errs
+
+
+def _entry_calls(M, cfg, params, emb, dec, mode: str) -> list:
+    """``prefill_chunk`` of the seeded embedding rows, then one
+    ``decode_step`` per decode embedding; returns each call's logits."""
+    b, c = emb.shape[:2]
+    state = M.init_decode_state(cfg, b, FAMILY_CACHE, device=emb.device)
+    chunk_len = torch.full((b,), c, dtype=torch.int32, device=emb.device)
+    state, lg = M.prefill_chunk(params, cfg, state, {
+        "inputs": emb, "chunk_len": chunk_len}, kernel_mode=mode)
+    out = [lg]
+    for t in range(dec.shape[1]):
+        state, lg = M.decode_step(params, cfg, state,
+                                  {"inputs": dec[:, t:t + 1]},
+                                  kernel_mode=mode)
+        out.append(lg)
+    if state["len"].tolist() != [c + dec.shape[1]] * b:
+        raise AssertionError(f"decode state len {state['len'].tolist()}")
+    return out
+
+
+def _patch_grid_positions(b: int, s: int, dev) -> torch.Tensor:
+    """(t, h, w) positions [B, S, 3]: 8 text tokens, a 4 x 4 patch grid at
+    t = 8 (h, w = 8 + row, 8 + column), then text from 12 on."""
+    pos = torch.arange(s, device=dev)[:, None].repeat(1, 3)
+    i = torch.arange(16, device=dev)
+    pos[8:24, 0] = 8
+    pos[8:24, 1] = 8 + i // 4
+    pos[8:24, 2] = 8 + i % 4
+    pos[24:] = torch.arange(12, 12 + s - 24, device=dev)[:, None]
+    return pos[None].expand(b, s, 3)
+
+
+def family_entry_points(dev) -> dict:
+    """qwen2-vl-7b (M-RoPE, G = 7, D = 128) and musicgen-large (sinusoidal
+    positions, G = 1, D = 64) through the model entry points, one after
+    the other: at the published widths in bf16 (B2 = L per chunk, B1 = L
+    per decode step, logits finite), then in f32 at 2 layers (TF32 off),
+    multiport against reference (equal argmax, logits within 1e-4), and
+    for qwen2-vl-7b ``forward`` with a 4 x 4 patch grid's positions
+    against ``prefill`` on the same positions. Returns the launch counts
+    of each bf16 run."""
+    import dataclasses
+
+    from repro_torch import models as M
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    runs = {}
+    for arch in ("qwen2-vl-7b", "musicgen-large"):
+        cfg = registry.get(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        emb = torch.randn((FAMILY_ROWS, FAMILY_CHUNK, cfg.d_model),
+                          generator=gen, device=dev)
+        dec = torch.randn((FAMILY_ROWS, FAMILY_STEPS, cfg.d_model),
+                          generator=gen, device=dev)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, gen, device=dev)
+        reset_launch_counts()
+        got = _entry_calls(M, cfg, params, emb, dec, "multiport")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(kv_chunk_append_attend=cfg.n_layers,
+                    kv_decode_append_attend=cfg.n_layers * FAMILY_STEPS)
+        if counts != want:
+            raise AssertionError(f"{arch} launch counts {counts} != {want}")
+        if not all(bool(torch.isfinite(g).all()) and
+                   tuple(g.shape) == (FAMILY_ROWS, cfg.vocab) for g in got):
+            raise AssertionError(f"{arch}: logits not finite or misshapen")
+        print(f"{arch} [published widths, bf16: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, D "
+              f"{cfg.head_dim_}, {cfg.pos_embed}]: prefill_chunk of "
+              f"{FAMILY_CHUNK} embedding rows x {FAMILY_ROWS} + "
+              f"{FAMILY_STEPS} decode steps, logits finite; launch counters "
+              f"{counts}; {time.perf_counter() - t0:.2f}s with the init, "
+              f"peak memory {_gib(torch.cuda.max_memory_allocated())}")
+        runs[arch] = counts
+        del params, got
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg, n_layers=F32_LAYERS,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        params = M.init_params(cfg32, gen, device=dev)
+        fused = _entry_calls(M, cfg32, params, emb, dec, "multiport")
+        ref = _entry_calls(M, cfg32, params, emb, dec, "reference")
+        err = max(_agree(f, r, ENTRY_TOL, ENTRY_TOL, f"{arch} call {i}")
+                  for i, (f, r) in enumerate(zip(fused, ref)))
+        if not all(torch.equal(f.argmax(-1), r.argmax(-1))
+                   for f, r in zip(fused, ref)):
+            raise AssertionError(f"{arch}: multiport argmax != reference")
+        line = (f"{arch} [f32, {F32_LAYERS} layers, TF32 off]: multiport == "
+                f"reference over {len(fused)} calls (argmax identical, max "
+                f"|diff| {err:.3g} within {ENTRY_TOL})")
+        if cfg.pos_embed == "mrope":
+            pos = _patch_grid_positions(FAMILY_ROWS, FAMILY_CHUNK, dev)
+            batch = {"inputs": emb, "positions": pos}
+            logits, _ = M.forward(params, cfg32, batch)
+            state = M.init_decode_state(cfg32, FAMILY_ROWS, FAMILY_CACHE,
+                                        device=dev)
+            _, last = M.prefill(params, cfg32, state, batch)
+            text = M.forward(params, cfg32, {"inputs": emb})[0]
+            e = _agree(last, logits[:, -1], ENTRY_TOL, ENTRY_TOL,
+                       f"{arch} prefill vs forward on patch positions")
+            if torch.equal(text[:, -1], logits[:, -1]):
+                raise AssertionError("the patch grid's positions changed "
+                                     "nothing")
+            line += (f"; forward == prefill on a 4 x 4 patch grid's (t, h, "
+                     f"w) positions (max |diff| {e:.3g}), which move the "
+                     f"logits off the text positions'")
+        print(f"{line}; {time.perf_counter() - t0:.2f}s")
+        del params, fused, ref
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1447,6 +1846,20 @@ def main() -> int:
           + " (B4b is a programmatic dependent launch, not held against "
           "this floor: its cost on the path is on the split pair lines)")
 
+    fused_equals_reference()
+    split_equals_serial()
+    chaos_open_loop()
+
+    torch.cuda.empty_cache()
+    counts, cap = serve_moe()
+    moe_errs = {"moe_bf16": moe_rows(counts, cap)}
+    del cap
+    moe_errs["moe_f32"] = moe_identity()
+    for what, by_kernel in moe_errs.items():
+        for name, e in by_kernel.items():
+            errs[name][what] = e
+    family_entry_points(dev)
+
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k, launches = found[name]
@@ -1466,10 +1879,6 @@ def main() -> int:
                      **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}})
-
-    fused_equals_reference()
-    split_equals_serial()
-    chaos_open_loop()
 
     print("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                   for r in rows))

@@ -1,7 +1,10 @@
-"""Serving launcher: the multi-port engine over a token-model architecture.
+"""Serving launcher: the multi-port engine over a token-model architecture
+of the dense or MoE family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --no-reduced --requests 4 --max-new 8 [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-moe-16b --no-reduced --requests 4 --max-new 8
 
 Closed loop: every request is submitted up front and the engine runs until
 all are served. ``--reduced`` (the default) serves the architecture's small
@@ -31,7 +34,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs import registry
 from repro_torch.kernels import launch_counts
-from repro_torch.models import init_params
+from repro_torch.models import KV_FAMILIES, init_params
 from repro_torch.serve import traffic
 from repro_torch.serve.chaos import ChaosHarness, FaultPlan
 from repro_torch.serve.engine import MultiPortEngine
@@ -145,9 +148,12 @@ def open_loop(args: argparse.Namespace) -> bool:
 
 def arch_config(args: argparse.Namespace):
     cfg = registry.get(args.arch, reduced=args.reduced)
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
-        raise SystemExit(f"{args.arch} is a {cfg.family!r} architecture; "
-                         f"repro_torch serves the dense family (ROADMAP A9)")
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{args.arch} has a stub frontend; serve a token arch")
+    if cfg.family not in KV_FAMILIES:
+        raise SystemExit(f"{args.arch} is a {cfg.family!r} architecture; the "
+                         f"engine serves KV-cache families (the {cfg.family!r}"
+                         f" model is ROADMAP A9b)")
     if args.dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
                                   compute_dtype=args.dtype)
@@ -191,8 +197,11 @@ def run(args: argparse.Namespace) -> tuple:
               f"clamping to {args.max_len} (the engine's own clamp)")
         seq_tile = args.max_len
     grid = "bucketed" if args.no_dynamic_grid else "dynamic-grid"
+    moe = cfg.moe
+    experts = (f", {moe.n_experts} experts top-{moe.top_k} of {moe.d_expert}"
+               f" + {moe.n_shared} shared" if moe is not None else "")
     print(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads{experts}, vocab {cfg.vocab}, "
           f"{cfg.param_dtype} on {args.device}")
     print(f"length-bounded staging buckets (seq_tile={seq_tile}, "
           f"S_max={args.max_len}, {grid}): {list(buckets)}")

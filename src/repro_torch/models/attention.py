@@ -40,13 +40,24 @@ def _project_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
     return q, k, v
 
 
-def _rope(q, k, positions, pos_embed: str, rope_theta: float):
-    if pos_embed != "rope":
-        raise NotImplementedError(
-            f"pos_embed={pos_embed!r} is not ported yet (the dense family "
-            f"uses rope; mrope/sinusoidal come with ROADMAP item A9)")
-    return (L.rope_apply(q, positions, rope_theta),
-            L.rope_apply(k, positions, rope_theta))
+def _apply_pos(q, k, positions, pos_embed: str, rope_theta: float,
+               mrope_sections):
+    if pos_embed == "rope":
+        q = L.rope_apply(q, positions, rope_theta)
+        k = L.rope_apply(k, positions, rope_theta)
+    elif pos_embed == "mrope":
+        q = L.mrope_apply(q, positions, mrope_sections, rope_theta)
+        k = L.mrope_apply(k, positions, mrope_sections, rope_theta)
+    # "none"/"sinusoidal": absolute embeddings are added at the stem.
+    return q, k
+
+
+def _text_positions(positions: torch.Tensor, pos_embed: str) -> torch.Tensor:
+    """[B, S] text positions as the position embedding takes them: M-RoPE
+    advances all three (t, h, w) streams together on text."""
+    if pos_embed == "mrope":
+        return positions[..., None].expand(*positions.shape, 3)
+    return positions
 
 
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
@@ -85,10 +96,12 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
                     pos_embed: str = "rope", rope_theta: float = 10000.0,
-                    q_chunk: int = 1024, compute_dtype=None) -> torch.Tensor:
+                    mrope_sections=(16, 24, 24), q_chunk: int = 1024,
+                    compute_dtype=None) -> torch.Tensor:
     """Full-sequence causal attention (training / prefill compute)."""
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
-    q, k = _rope(q, k, positions, pos_embed, rope_theta)
+    q, k = _apply_pos(q, k, positions, pos_embed, rope_theta,
+                      mrope_sections)
     out = chunked_causal_attention(q, k, v, q_chunk=q_chunk)
     b, s = x.shape[:2]
     return L.linear(p["wo"], out.reshape(b, s, n_heads * head_dim),
@@ -99,7 +112,8 @@ def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cache_k: torch.Tensor, cache_v: torch.Tensor, *,
                       n_heads: int, n_kv_heads: int, head_dim: int,
                       pos_embed: str = "rope", rope_theta: float = 10000.0,
-                      q_chunk: int = 1024, compute_dtype=None):
+                      mrope_sections=(16, 24, 24), q_chunk: int = 1024,
+                      compute_dtype=None):
     """Prefill: attend causally over the prompt AND write its K,V into the
     caches at [0, S), in place.
 
@@ -111,7 +125,8 @@ def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor,
         raise ValueError(f"prompt of {s} tokens exceeds the cache's "
                          f"{cache_k.shape[1]} positions")
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
-    q, k = _rope(q, k, positions, pos_embed, rope_theta)
+    q, k = _apply_pos(q, k, positions, pos_embed, rope_theta,
+                      mrope_sections)
     out = chunked_causal_attention(q, k, v, q_chunk=q_chunk)
     cache_k[:, :s] = k.to(cache_k.dtype)
     cache_v[:, :s] = v.to(cache_v.dtype)
@@ -126,6 +141,7 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, offset: torch.Tensor,
                             n_kv_heads: int, head_dim: int,
                             pos_embed: str = "rope",
                             rope_theta: float = 10000.0,
+                            mrope_sections=(16, 24, 24),
                             kernel_mode: str = "reference",
                             seq_tile: int = 128, dynamic_grid: bool = False,
                             port_mix: str = "wr", compute_dtype=None):
@@ -141,7 +157,8 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, offset: torch.Tensor,
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
     rel = torch.arange(c, device=x.device)
     positions = offset.long()[:, None] + rel[None, :]             # [B, C]
-    q, k = _rope(q, k, positions, pos_embed, rope_theta)
+    q, k = _apply_pos(q, k, _text_positions(positions, pos_embed), pos_embed,
+                      rope_theta, mrope_sections)
     new_k = k.to(cache_k.dtype)
     new_v = v.to(cache_v.dtype)
     if kernel_mode == "multiport":
@@ -163,6 +180,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len: torch.Tensor, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      pos_embed: str = "rope", rope_theta: float = 10000.0,
+                     mrope_sections=(16, 24, 24),
                      kernel_mode: str = "reference", seq_tile: int = 128,
                      length_mask: bool = True, dynamic_grid: bool = False,
                      num_kv_splits: int = 1, port_mix: str = "wr",
@@ -171,7 +189,9 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     cache_len: [B] current lengths. Returns (out [B, 1, d], k', v')."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
-    q, k = _rope(q, k, cache_len.long()[:, None], pos_embed, rope_theta)
+    q, k = _apply_pos(q, k, _text_positions(cache_len.long()[:, None],
+                                            pos_embed),
+                      pos_embed, rope_theta, mrope_sections)
     q1 = q[:, 0]                                       # [B, H, D]
     new_k = k[:, 0].to(cache_k.dtype)
     new_v = v[:, 0].to(cache_v.dtype)

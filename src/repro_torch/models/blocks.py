@@ -1,5 +1,6 @@
-"""Transformer block (dense family): init, the whole-sequence body
-(forward and prefill) and the serving steps (chunked prefill and decode).
+"""Transformer block (dense, moe, vlm and audio families): init, the
+whole-sequence body (forward and prefill) and the serving steps (chunked
+prefill and decode).
 Block params are plain dicts; a stacked init gives every leaf a leading
 [n_layers] axis, and the model indexes one layer at a time."""
 from __future__ import annotations
@@ -14,33 +15,49 @@ from repro_torch.models import mlp as M
 
 def transformer_block_init(gen, cfg: ArchConfig, *, device="cuda",
                            lead: tuple = ()) -> dict:
+    """A ``"moe"`` subtree when the config has one, else a SwiGLU
+    ``"ffn"``."""
     kw = dict(dtype=cfg.pdtype, device=device, lead=lead)
-    return {
+    p = {
         "ln1": L.rmsnorm_init(cfg.d_model, **kw),
         "attn": A.attention_init(gen, cfg.d_model, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.head_dim_,
                                  qkv_bias=cfg.qkv_bias, **kw),
         "ln2": L.rmsnorm_init(cfg.d_model, **kw),
-        "ffn": M.swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw),
     }
+    if cfg.moe is not None:
+        p["moe"] = M.moe_init(gen, cfg.d_model, cfg.moe, **kw)
+    else:
+        p["ffn"] = M.swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw)
+    return p
 
 
-def _ffn(p: dict, x, cfg: ArchConfig):
+def _ffn(p: dict, x, cfg: ArchConfig) -> tuple[torch.Tensor, tuple | None]:
+    """The residual FFN half: (x', the router's (probabilities, top-k
+    experts) for the MoE aux loss; None for a SwiGLU block). The serving
+    steps drop the routing, so they never compute the aux loss."""
     y = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + M.swiglu_apply(p["ffn"], y, compute_dtype=cfg.cdtype)
+    if "moe" in p:
+        h, probs, gate_e = M.moe_ffn(p["moe"], y, cfg.moe,
+                                     compute_dtype=cfg.cdtype)
+        return x + h, (probs, gate_e)
+    return x + M.swiglu_apply(p["ffn"], y, compute_dtype=cfg.cdtype), None
 
 
 def transformer_block_apply(p: dict, x, positions, cfg: ArchConfig
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill-compute body. Returns (x', aux); aux is the MoE
-    load-balancing loss, 0 for the dense family."""
+    load-balancing loss, 0 without experts."""
     h = A.attention_train(
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
-        q_chunk=cfg.q_chunk, compute_dtype=cfg.cdtype)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _ffn(p, x + h, cfg), aux
+        mrope_sections=tuple(cfg.mrope_sections), q_chunk=cfg.q_chunk,
+        compute_dtype=cfg.cdtype)
+    x, routing = _ffn(p, x + h, cfg)
+    if routing is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, M.moe_aux(*routing, cfg.moe)
 
 
 def transformer_block_prefill(p: dict, x, positions, cache_k, cache_v,
@@ -50,8 +67,9 @@ def transformer_block_prefill(p: dict, x, positions, cache_k, cache_v,
         cache_k, cache_v,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
-        q_chunk=cfg.q_chunk, compute_dtype=cfg.cdtype)
-    return _ffn(p, x + h, cfg), ck, cv
+        mrope_sections=tuple(cfg.mrope_sections), q_chunk=cfg.q_chunk,
+        compute_dtype=cfg.cdtype)
+    return _ffn(p, x + h, cfg)[0], ck, cv
 
 
 def transformer_block_prefill_chunk(p: dict, x, offset, chunk_len, cache_k,
@@ -65,9 +83,10 @@ def transformer_block_prefill_chunk(p: dict, x, offset, chunk_len, cache_k,
         cache_k, cache_v,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
-        kernel_mode=kernel_mode, seq_tile=seq_tile, dynamic_grid=dynamic_grid,
-        port_mix=port_mix, compute_dtype=cfg.cdtype)
-    return _ffn(p, x + h, cfg), ck, cv
+        mrope_sections=tuple(cfg.mrope_sections), kernel_mode=kernel_mode,
+        seq_tile=seq_tile, dynamic_grid=dynamic_grid, port_mix=port_mix,
+        compute_dtype=cfg.cdtype)
+    return _ffn(p, x + h, cfg)[0], ck, cv
 
 
 def transformer_block_decode(p: dict, x, cache_k, cache_v, cache_len,
@@ -80,7 +99,8 @@ def transformer_block_decode(p: dict, x, cache_k, cache_v, cache_len,
         cache_len,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
-        kernel_mode=kernel_mode, seq_tile=seq_tile, length_mask=length_mask,
-        dynamic_grid=dynamic_grid, num_kv_splits=num_kv_splits,
-        port_mix=port_mix, compute_dtype=cfg.cdtype)
-    return _ffn(p, x + h, cfg), ck, cv
+        mrope_sections=tuple(cfg.mrope_sections), kernel_mode=kernel_mode,
+        seq_tile=seq_tile, length_mask=length_mask, dynamic_grid=dynamic_grid,
+        num_kv_splits=num_kv_splits, port_mix=port_mix,
+        compute_dtype=cfg.cdtype)
+    return _ffn(p, x + h, cfg)[0], ck, cv

@@ -8,7 +8,9 @@ published configs).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Sequence
 
 import torch
 
@@ -22,7 +24,18 @@ from repro_torch import device as _device
 def normal_init(gen: torch.Generator, shape, dtype, stddev: float,
                 device) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * stddev).to(dtype)
+    return x.mul_(stddev).to(dtype)
+
+
+def stacked_normal_init(gen: torch.Generator, lead: tuple, shape, dtype,
+                        stddev: float, device) -> torch.Tensor:
+    """``normal_init`` of a ``[*lead, *shape]`` stack, drawn one ``shape``
+    slice at a time: the f32 draw held at once is one slice, not the stack
+    (a stack of MoE expert weights is tens of GB in f32)."""
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    for piece in out.view(-1, *shape):
+        piece.copy_(normal_init(gen, shape, dtype, stddev, device))
+    return out
 
 
 def fan_in_init(gen, shape, dtype, device, fan_in: int | None = None):
@@ -87,7 +100,7 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (RoPE and Qwen2-VL multimodal M-RoPE)
 # --------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
@@ -113,6 +126,57 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The position stream of each rotary pair, made once per sections and
+    device, on the device (no host copy, no sync)."""
+    return torch.cat([torch.full((n,), i, device=device)
+                      for i, n in enumerate(sections)])
+
+
+def mrope_apply(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int], theta: float = 10000.0
+                ) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the rotary pairs are split into (t, h, w) sections,
+    each driven by its own position stream.
+
+    x: [..., S, n_heads, head_dim]; positions: [..., S, 3] (t, h, w indices);
+    sections: pair counts per stream, sum == head_dim // 2.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)          # [half]
+    sec_id = _mrope_streams(tuple(sections), x.device)              # [half]
+    pos = positions.float()[..., sec_id]                            # [..., S, half]
+    ang = pos * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         offset: torch.Tensor | int = 0,
+                         device="cuda") -> torch.Tensor:
+    """MusicGen-style absolute sinusoidal position embeddings, ``[sin |
+    cos]``: [S, d] for an int ``offset``, [B, S, d] for per-row offsets
+    [B]."""
+    if torch.is_tensor(offset):
+        device = offset.device
+        offset = offset.long()[:, None]
+    else:
+        device = _device.resolve(device)
+    pos = (torch.arange(seq_len, device=device) + offset)[..., None].float()
+    half = d_model // 2
+    div = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / half))
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,14 @@
-"""Model assembly for the dense family: init, the whole-prompt forward and
-prefill, decode state, decode step and chunked prefill, plus the bridge that
-carries the JAX package's parameters across. ``loss_fn`` and training come
-with ROADMAP item A10.
+"""Model assembly for the KV-cache families (dense, moe, vlm, audio): init,
+the whole-prompt forward and prefill, decode state, decode step and chunked
+prefill, plus the bridge that carries the JAX package's parameters across.
+``loss_fn`` and training come with ROADMAP item A10; the ssm and hybrid
+families with A9b.
+
+Batch dict convention, as in the JAX package: ``"inputs"`` holds token ids
+[B, S] (``input_mode="tokens"``) or embeddings [B, S, d]
+(``"embeddings"``, the VLM and audio stubs' frontend output);
+``"positions"`` is optional, [B, S] for rope and [B, S, 3] (t, h, w) for
+mrope.
 
 Parameters are a nested dict of tensors shaped exactly like the JAX
 package's pytree: block leaves are stacked on a leading [n_layers] axis,
@@ -28,29 +35,33 @@ from repro_torch.models import layers as L
 PyTree = Any
 
 
+KV_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in KV_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (dense only; "
-            f"MoE/VLM/audio/ssm/hybrid come with ROADMAP item A9)")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError("embedding-input frontends are not ported")
+            f"the {cfg.family!r} family is not ported yet (the port has "
+            f"{'/'.join(KV_FAMILIES)}; ssm and hybrid come with ROADMAP "
+            f"item A9b)")
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> PyTree:
     """Random parameters with the JAX package's shapes and distributions
     (``models/layers.py`` there): embeddings N(0, 1), linear weights
-    N(0, 1/fan_in), norm scales 1. ``generator`` lives on ``device``."""
+    N(0, 1/fan_in), MoE routers N(0, 0.02), norm scales 1; no ``embed``
+    for an embedding-input model. ``generator`` lives on ``device``."""
     _check_family(cfg)
     kw = dict(dtype=cfg.pdtype, device=device)
-    return {
-        "embed": L.embedding_init(generator, cfg.vocab, cfg.d_model, **kw),
-        "final_norm": L.rmsnorm_init(cfg.d_model, **kw),
-        "lm_head": L.linear_init(generator, cfg.d_model, cfg.vocab, **kw),
-        "layers": B.transformer_block_init(generator, cfg, device=device,
-                                           lead=(cfg.n_layers,)),
-    }
+    p = {}
+    if cfg.input_mode == "tokens":
+        p["embed"] = L.embedding_init(generator, cfg.vocab, cfg.d_model, **kw)
+    p["final_norm"] = L.rmsnorm_init(cfg.d_model, **kw)
+    p["lm_head"] = L.linear_init(generator, cfg.d_model, cfg.vocab, **kw)
+    p["layers"] = B.transformer_block_init(generator, cfg, device=device,
+                                           lead=(cfg.n_layers,))
+    return p
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -66,7 +77,7 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree: PyTree, cfg: ArchConfig, device="cuda") -> PyTree:
     """The port's parameters from the JAX ``init_params`` pytree converted
-    leaf by leaf to numpy (``jax.tree.map(np.asarray, params)``)."""
+    leaf by leaf to numpy (the JAX ``tree.map(np.asarray, params)``)."""
     _check_family(cfg)
 
     def conv(x):
@@ -87,27 +98,41 @@ def _head(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return L.linear(params["lm_head"], x, cfg.cdtype)
 
 
+def _stem(params: PyTree, cfg: ArchConfig, inputs: torch.Tensor,
+          offset: torch.Tensor | int = 0) -> torch.Tensor:
+    """Token lookup or embedding input, plus the sinusoidal positions of
+    an audio model at ``offset`` (an int, or per-row offsets [B])."""
+    if cfg.input_mode == "tokens":
+        x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    else:
+        x = inputs.to(cfg.cdtype)
+    if cfg.pos_embed == "sinusoidal":
+        pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, offset, x.device)
+        x = x + pe.to(x.dtype)
+    return x
+
+
 def _default_positions(cfg: ArchConfig, batch: dict, b: int, s: int,
                        device) -> torch.Tensor:
     pos = batch.get("positions")
     if pos is not None:
         return pos
+    base = torch.arange(s, device=device)[None]
     if cfg.pos_embed == "mrope":
-        raise NotImplementedError(
-            "mrope positions are not ported yet (ROADMAP item A9)")
-    return torch.arange(s, device=device)[None].expand(b, s)
+        return base[..., None].expand(b, s, 3)
+    return base.expand(b, s)
 
 
 def forward(params: PyTree, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The whole sequence at once. batch: {"inputs": ids [B, S], optional
-    "positions": [B, S]}. Returns (logits [B, S, V], aux scalar; 0 for the
-    dense family)."""
+    """The whole sequence at once. batch: {"inputs": ids [B, S] or
+    embeddings [B, S, d], optional "positions"}. Returns (logits [B, S, V],
+    the MoE aux loss summed over layers; 0 without experts)."""
     _check_family(cfg)
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
     positions = _default_positions(cfg, batch, b, s, inputs.device)
-    x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    x = _stem(params, cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = B.transformer_block_apply(_layer(params["layers"], i), x,
@@ -125,7 +150,7 @@ def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
     positions = _default_positions(cfg, batch, b, s, inputs.device)
-    x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    x = _stem(params, cfg, inputs)
     ck, cv = state["cache_k"], state["cache_v"]
     for i in range(cfg.n_layers):   # each layer writes ck[i], cv[i] in place
         x, _, _ = B.transformer_block_prefill(
@@ -162,8 +187,8 @@ def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
     ``seq_tile``/``length_mask`` bound the fused kernel's traversal to live
     cache tiles."""
     _check_family(cfg)
-    x = L.embedding_lookup(params["embed"], batch["inputs"], cfg.cdtype)
     ck, cv, lens = state["cache_k"], state["cache_v"], state["len"]
+    x = _stem(params, cfg, batch["inputs"], offset=lens)
     for i in range(cfg.n_layers):
         x, k_i, v_i = B.transformer_block_decode(
             _layer(params["layers"], i), x, ck[i], cv[i], lens, cfg,
@@ -182,7 +207,8 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                   ) -> tuple[PyTree, torch.Tensor]:
     """Process ONE fixed-size prompt chunk for a batch of sequences.
 
-    batch: {"inputs": ids [B, C], "chunk_len": [B] valid rows per sequence}.
+    batch: {"inputs": ids [B, C] or embeddings [B, C, d], "chunk_len": [B]
+    valid rows per sequence}.
     Every chunk's K,V is written at [len, len+chunk_len) while attention
     reads back over everything cached so far. Returns (state', logits
     [B, V]) with each row's logits taken at its LAST VALID chunk position;
@@ -194,7 +220,7 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
     chunk_len = torch.as_tensor(batch["chunk_len"], dtype=torch.int32,
                                 device=inputs.device)
     offset = state["len"]
-    x = L.embedding_lookup(params["embed"], inputs, cfg.cdtype)
+    x = _stem(params, cfg, inputs, offset=offset)
     ck, cv = state["cache_k"], state["cache_v"]
     for i in range(cfg.n_layers):
         x, k_i, v_i = B.transformer_block_prefill_chunk(

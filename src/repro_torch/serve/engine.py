@@ -116,7 +116,7 @@ from repro_torch.kernels.tiling import fit_seq_tile
 from repro_torch.memory.paged_kv import (APPEND, ATTN_READ, BULK_FILL, SCRUB,
                                          PagedPool, PoolCapacityError,
                                          _bucket, seq_tile_buckets)
-from repro_torch.models import decode_step, prefill_chunk
+from repro_torch.models import KV_FAMILIES, decode_step, prefill_chunk
 from repro_torch.serve import scheduler as sched_mod
 from repro_torch.serve.admission import (AdmissionQueue, OverloadController,
                                          prefix_admission_plan)
@@ -263,10 +263,8 @@ class MultiPortEngine:
                  capacity_retry_limit: int = 16,
                  overload: Optional[OverloadController] = None,
                  prefix_cache: bool = False, device="cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the engine serves the dense family in this port (got "
-                f"{cfg.family!r}; other families are ROADMAP item A9)")
+        if cfg.family not in KV_FAMILIES:
+            raise ValueError("engine currently serves KV-cache families")
         self.device = _device.resolve(device)
         if kernel_mode not in ("pallas", "reference"):
             raise ValueError(f"unknown kernel_mode: {kernel_mode!r}")

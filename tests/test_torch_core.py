@@ -23,7 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_init
 from repro_torch.models.blocks import transformer_block_init
-from repro_torch.models.mlp import swiglu_init
+from repro_torch.models.mlp import moe_init, swiglu_init
 
 DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -190,8 +190,13 @@ def _init_gen(kw):
     lambda **kw: transformer_block_init(
         _init_gen(kw), treg.get("tinyllama-1.1b", reduced=True),
         **kw)["ln1"]["scale"],
+    lambda **kw: moe_init(
+        _init_gen(kw), 8, treg.get("deepseek-moe-16b", reduced=True).moe,
+        **kw)["w_down"],
+    lambda **kw: L.sinusoidal_positions(4, 8, **kw),
 ], ids=["linear_init", "embedding_init", "rmsnorm_init", "rope_frequencies",
-        "swiglu_init", "attention_init", "transformer_block_init"])
+        "swiglu_init", "attention_init", "transformer_block_init",
+        "moe_init", "sinusoidal_positions"])
 def test_model_init_helpers_default_to_the_card(make):
     """The model's public init helpers, like ``init_params`` and the JAX
     counterparts, build on the accelerator unless asked for the CPU, and

@@ -92,6 +92,15 @@ CHUNK_CASES = {
     "long": dict(s=2048, c=128, tile=64, d=64,
                  off=[639, 1280, 1601, -1, 320, 1919],
                  cl=[128, 1, 0, 0, 128, 128]),
+    # the MoE and model-level heads: deepseek-moe-16b's chunk (G 1, D 128
+    # over 16 kv heads: the DP = 128 build), qwen2-vl-7b's (G 7, D 128)
+    # and musicgen-large's (G 1, D 64 over 32 kv heads)
+    "g1_d128": dict(s=128, c=16, tile=64, d=128, hkv=16, g=1,
+                    off=[0, 63, 64, -1, 100, 3], cl=[16, 16, 1, 0, 16, 9]),
+    "g7_d128": dict(s=256, c=128, tile=128, d=128, hkv=4, g=7,
+                    off=[0, 127, -1, 64], cl=[128, 1, 0, 100]),
+    "g1_d64_h32": dict(s=256, c=128, tile=128, d=64, hkv=32, g=1,
+                       off=[0, 127, -1, 64], cl=[128, 1, 0, 100]),
 }
 
 
@@ -104,7 +113,7 @@ def test_chunk_kernel_on_card(rng, cuda_device, qdt, cdt, case):
     kw = CHUNK_CASES[case]
     s, c, tile, d = kw["s"], kw["c"], kw["tile"], kw["d"]
     off, cl = kw["off"], kw["cl"]
-    hkv, g = 4, 8
+    hkv, g = kw.get("hkv", 4), kw.get("g", 8)
     b = len(off)
     q = _normal(rng, cuda_device, qdt, b, c, hkv * g, d)
     ck, cv = (_normal(rng, cuda_device, cdt, b, s, hkv, d) for _ in "kv")
@@ -154,8 +163,9 @@ def _pool_against_plain(storage, addr, data, mask, roles):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 # 300: 16-byte moves in f32, 8-byte in bf16; 11264 (the full tinyllama
-# word): 16-byte moves; 11263: 4-byte (f32) and 2-byte (bf16) moves
-@pytest.mark.parametrize("width", [300, 11264, 11263])
+# word): 16-byte moves; 11263: 4-byte (f32) and 2-byte (bf16) moves;
+# 114688 (the full deepseek-moe-16b word: 28 x 2 x 16 x 128)
+@pytest.mark.parametrize("width", [300, 11264, 11263, 114688])
 @pytest.mark.parametrize("roles", [(WRITE, READ, WRITE, READ),
                                    (WRITE, WRITE, READ), (READ,),
                                    (READ, WRITE, READ), (READ, READ, WRITE)])
@@ -381,6 +391,7 @@ SPLIT_RING_CASES = [  # G, D, q dtype, cache dtype
     (32, 18, "f32", "f32"),                          # element-wise loader
     (8, 18, "bf16", "bf16"), (8, 64, "bf16", "bf16"), (7, 128, "bf16", "bf16"),
     (32, 64, "f32", "bf16"), (8, 12, "f32", "bf16"),  # 24-byte bf16 rows
+    (1, 128, "f32", "f32"), (1, 128, "bf16", "f32"),  # deepseek-moe-16b's
 ]
 
 
@@ -562,6 +573,7 @@ SERIAL_CASES = [  # G, D, q dtype, cache dtype
     (8, 64, "bf16", "bf16"), (1, 64, "f32", "f32"), (32, 128, "f32", "f32"),
     (7, 128, "bf16", "bf16"), (32, 18, "f32", "f32"),  # element-wise loader
     (4, 12, "f32", "bf16"),                           # 24-byte bf16 rows
+    (1, 128, "bf16", "f32"),                  # deepseek-moe-16b's decode
 ]
 
 
@@ -769,3 +781,42 @@ def test_unchanged_rows_hold_their_time(rng, cuda_device):
         qc, ck, cv, nkc, nvc, of, cl, seq_tile=tile, dynamic_grid=True))
     assert b4a <= 1.10 * 0.01506, f"B4a {b4a:.5f} ms"
     assert b2 <= 1.10 * 0.36841, f"B2 {b2:.5f} ms"
+
+
+@pytest.mark.cuda
+def test_moe_apply_on_card_matches_its_cpu_result(rng, cuda_device):
+    """The MoE layer (sort dispatch, capacity drops, batched expert
+    einsums, combine) at deepseek-moe-16b's reduced config, f32 with TF32
+    off: the card's output and aux equal the CPU's at 1e-5, with a zero
+    row whose tied experts go to the lowest indices on both. Neither it
+    nor M-RoPE waits on the card (a decode cycle's MoE layers replay as
+    one CUDA graph in chip_smoke.py)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers, mlp
+    cfg = registry.get("deepseek-moe-16b", reduced=True)
+    p = mlp.moe_init(torch.Generator().manual_seed(0), cfg.d_model, cfg.moe,
+                     device="cpu")
+    x = torch.from_numpy(rng.normal(size=(3, 16, cfg.d_model))
+                         .astype(np.float32))
+    x[1] = 0.0
+    out, aux = mlp.moe_apply(p, x, cfg.moe)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+    p_c, x_c = to_card(p), x.to(cuda_device)
+    pos = torch.randint(0, 64, (3, 16, 3), device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_c, aux_c = mlp.moe_apply(p_c, x_c, cfg.moe)
+        rot = layers.mrope_apply(x_c.reshape(3, 16, 4, 16), pos, (4, 2, 2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out_c.device.type == "cuda"
+    torch.testing.assert_close(
+        rot.cpu(), layers.mrope_apply(x.reshape(3, 16, 4, 16), pos.cpu(),
+                                      (4, 2, 2)), atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(out_c.cpu(), out, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(aux_c.cpu(), aux, atol=F32_TOL, rtol=F32_TOL)

@@ -4,7 +4,12 @@ in both kernel modes, with the JAX parameters bridged across. Greedy
 tokens, traversal and tile counters, the schedule log, the per-mix
 traversal histogram and every prefix-cache counter are identical; the pool
 storage agrees after every macro-cycle (f32, 1e-5: its words are K/V
-vectors each framework computes with its own matmuls)."""
+vectors each framework computes with its own matmuls). The same holds
+over the port-budget / schedule / prefix-cache sweep, and for the MoE
+family (reduced deepseek-moe-16b and llama4-scout-17b-a16e) with capacity
+drops in the prefill chunks."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -14,8 +19,11 @@ from repro.configs import registry as jreg
 from repro.models import init_params as j_init
 from repro.serve.engine import MultiPortEngine as JEngine
 from repro_torch.configs import registry as treg
+from repro_torch.models import init_params as t_init
+from repro_torch.models import mlp as tmlp
 from repro_torch.models import params_from_numpy
 from repro_torch.serve.engine import MultiPortEngine as TEngine
+from test_torch_moe import slots_over_capacity
 
 COUNTERS = ("cycles", "pool_traversals", "decode_steps", "decode_traversals",
             "steady_decode_steps", "steady_decode_traversals",
@@ -26,14 +34,18 @@ COUNTERS = ("cycles", "pool_traversals", "decode_steps", "decode_traversals",
             "evictions", "idle_ticks", "vclock")
 
 
-@pytest.fixture(scope="module")
-def served():
-    cfg_j = jreg.get("tinyllama-1.1b", reduced=True)
-    cfg_t = treg.get("tinyllama-1.1b", reduced=True)
+def _bridge(arch):
+    cfg_j = jreg.get(arch, reduced=True)
+    cfg_t = treg.get(arch, reduced=True)
     params_j = j_init(jax.random.PRNGKey(0), cfg_j)
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), cfg_t,
                                  "cpu")
     return cfg_j, cfg_t, params_j, params_t
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _bridge("tinyllama-1.1b")
 
 
 def _pair(served, **kw):
@@ -136,16 +148,28 @@ def test_static_bucketed_two_port_engine_matches_jax(served):
 
 
 def test_engine_refuses_unported_options(served):
-    """Split-KV is ported (its count is validated as in the JAX engine);
-    the non-dense families are not (ROADMAP A9)."""
+    """Split-KV is ported (its count is validated as in the JAX engine).
+    What the JAX engine refuses, the port refuses with the same exception:
+    the families without a KV cache (rwkv6-3b, zamba2-7b: ValueError at
+    construction) and embedding-input models (qwen2-vl-7b, musicgen-large:
+    NotImplementedError at admission)."""
     cfg_t, params_t = served[1], served[3]
     with pytest.raises(ValueError, match="num_kv_splits"):
         TEngine(params_t, cfg_t, num_kv_splits=0, device="cpu")
     assert TEngine(params_t, cfg_t, num_kv_splits=2,
                    device="cpu").num_kv_splits == 2
-    rwkv = treg.get("rwkv6-3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TEngine(params_t, rwkv, device="cpu")
+    for arch in ("rwkv6-3b", "zamba2-7b"):
+        for engine in (JEngine, TEngine):
+            kw = {"device": "cpu"} if engine is TEngine else {}
+            with pytest.raises(ValueError, match="KV-cache families"):
+                engine(params_t, treg.get(arch, reduced=True), **kw)
+    for arch in ("qwen2-vl-7b", "musicgen-large"):
+        cfg = treg.get(arch, reduced=True)
+        eng = TEngine(t_init(cfg, torch.Generator().manual_seed(0), "cpu"),
+                      cfg, slots=2, max_len=32, device="cpu")
+        eng.submit([1, 2, 3], max_new=2)
+        with pytest.raises(NotImplementedError, match="token models"):
+            eng.step()
 
 
 def test_engine_staging_is_a_device_copy(served):
@@ -156,3 +180,79 @@ def test_engine_staging_is_a_device_copy(served):
     staged = et._stage_bufs.to_device(buf)
     staged += 1.0
     assert float(torch.from_numpy(buf).abs().max()) == 0.0
+
+
+def _shared_prefix_prompts(vocab):
+    """Four prompts through 2 slots, three sharing a 16-token prefix; the
+    first sharer decodes longest, so later sharers find it resident."""
+    rng = np.random.default_rng(7)
+    head = [int(t) for t in rng.integers(0, vocab, 16)]
+    tails = [[int(t) for t in rng.integers(0, vocab, n)] for n in (3, 5, 2)]
+    other = [int(t) for t in rng.integers(0, vocab, 9)]
+    return [(head + tails[0], 8), (other, 2), (head + tails[1], 3),
+            (head + tails[2], 3)]
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False])
+@pytest.mark.parametrize("schedule_mode", ["ooo", "static"])
+@pytest.mark.parametrize("max_ports", [1, 3])
+def test_port_budget_schedule_and_prefix_sweep_matches_jax(
+        served, max_ports, schedule_mode, prefix_cache):
+    """The parity sweep of the engine's options in pallas mode: a 1- and a
+    3-port budget, both schedules, the prefix cache on and off."""
+    ej, et = _pair(served, slots=2, max_slots=2, max_len=48, chunk_tokens=8,
+                   page_tokens=8, seq_tile=8, kernel_mode="pallas",
+                   max_ports=max_ports, schedule_mode=schedule_mode,
+                   prefix_cache=prefix_cache)
+    for prompt, max_new in _shared_prefix_prompts(served[1].vocab):
+        ej.submit(prompt, max_new=max_new)
+        et.submit(prompt, max_new=max_new)
+    _lockstep(ej, et)
+    _assert_same(ej, et)
+    assert len(et.finished) == 4
+    assert (et.prefix_stats["hits"] > 0) == prefix_cache
+
+
+class _DropCounter:
+    """Wraps ``mlp.moe_ffn``, the serving steps' MoE layer, to count, per
+    call, the slots its capacity drops (routed as both sides route: stable
+    descending sort)."""
+
+    def __init__(self):
+        self.chunk_drops = self.calls = 0
+        self._orig = tmlp.moe_ffn
+
+    def __call__(self, p, x, cfg, compute_dtype=None):
+        if x.shape[1] > 1:
+            self.chunk_drops += slots_over_capacity(p, x, cfg)
+        self.calls += 1
+        return self._orig(p, x, cfg, compute_dtype)
+
+
+@pytest.fixture(scope="module", params=["deepseek-moe-16b",
+                                        "llama4-scout-17b-a16e"])
+def moe_served(request):
+    return _bridge(request.param)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "reference"])
+def test_moe_engine_matches_jax(moe_served, mode, monkeypatch):
+    """deepseek at its own capacity factor (its chunks drop slots: a padded
+    chunk routes its pad rows alike), llama4-scout at capacity 0.25 (drops
+    forced everywhere); 4 requests through 2 slots, prefix cache on."""
+    cfg_j, cfg_t, params_j, params_t = moe_served
+    if cfg_t.arch_id.startswith("llama4"):
+        cfg_j, cfg_t = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=0.25)) for c in (cfg_j, cfg_t))
+    drops = _DropCounter()
+    monkeypatch.setattr(tmlp, "moe_ffn", drops)
+    ej, et = _pair((cfg_j, cfg_t, params_j, params_t), slots=2, max_len=48,
+                   chunk_tokens=8, page_tokens=8, seq_tile=8,
+                   kernel_mode=mode, prefix_cache=True)
+    for prompt, max_new in _shared_prefix_prompts(cfg_t.vocab):
+        ej.submit(prompt, max_new=max_new)
+        et.submit(prompt, max_new=max_new)
+    _lockstep(ej, et)
+    _assert_same(ej, et)
+    assert len(et.finished) == 4
+    assert drops.calls and drops.chunk_drops > 0

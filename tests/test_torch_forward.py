@@ -141,23 +141,31 @@ def test_prefill_then_decode_matches_forward(bridged, ids, mode):
     assert state["len"].tolist() == [S] * B
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-vl-7b",
-                                  "rwkv6-3b"])
-def test_non_dense_families_raise_naming_a9(arch):
-    cfg = treg.get(arch, reduced=True)
-    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="A9"):
+@pytest.mark.parametrize("arch,reduced", [("rwkv6-3b", True),
+                                          ("zamba2-7b", True),
+                                          ("zamba2-7b", False)])
+def test_non_dense_families_raise_naming_a9(arch, reduced):
+    """The ssm and hybrid families (ROADMAP A9b), published or reduced,
+    are refused by every entry point before any work."""
+    cfg = treg.get(arch, reduced=reduced)
+    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64),
+             "chunk_len": torch.ones((1,), dtype=torch.int32)}
+    for entry in (tm.prefill, tm.decode_step, tm.prefill_chunk):
+        with pytest.raises(NotImplementedError, match="A9b"):
+            entry({}, cfg, {}, batch)
+    with pytest.raises(NotImplementedError, match="A9b"):
         tm.forward({}, cfg, batch)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.prefill({}, cfg, {}, batch)
 
 
 def test_mrope_positions_raise_naming_a9(bridged):
+    """M-RoPE positions are ported (``test_torch_families.py``); on a
+    family that is not (hybrid, A9b) the refusal comes before them."""
     _, cfg_t, _, params_t = bridged
-    cfg = dataclasses.replace(cfg_t, pos_embed="mrope")
+    cfg = dataclasses.replace(treg.get("zamba2-7b", reduced=True),
+                              pos_embed="mrope")
     batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9b"):
         tm.forward(params_t, cfg, batch)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9b"):
         tm.prefill(params_t, cfg, tm.init_decode_state(cfg_t, 1, 8, "cpu"),
                    batch)

@@ -63,6 +63,27 @@ def test_launcher_no_reduced_picks_published_config():
     assert serve.arch_config(serve.parse_args([])).n_layers == 2
 
 
+@pytest.mark.parametrize("arch,family", [("deepseek-moe-16b", "moe"),
+                                         ("llama4-scout-17b-a16e", "moe")])
+def test_launcher_serves_the_moe_family(arch, family):
+    from repro_torch.launch import serve
+    cfg = serve.arch_config(serve.parse_args(["--arch", arch,
+                                              "--no-reduced"]))
+    assert (cfg.family, cfg.param_dtype) == (family, "bfloat16")
+    assert cfg.moe is not None and cfg.input_mode == "tokens"
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("qwen2-vl-7b", "stub frontend"), ("musicgen-large", "stub frontend"),
+    ("rwkv6-3b", "A9b"), ("zamba2-7b", "A9b")])
+def test_launcher_refuses_what_the_engine_cannot_serve(arch, match):
+    """Embedding-input stubs, as the JAX launcher refuses them, and the
+    families without a KV cache; before any parameter is drawn."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=match):
+        serve.arch_config(serve.parse_args(["--arch", arch]))
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--kv-shards", "2"], "A8"),
 ])
