@@ -101,7 +101,10 @@ Phases (any failure exits non-zero before the final line):
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -1351,12 +1354,6 @@ def _gib(nbytes: int) -> str:
     return f"{nbytes / 2 ** 30:.2f} GiB"
 
 
-def _tree_layer(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _tree_layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -1366,8 +1363,6 @@ def _tree_bytes(tree) -> int:
 def _depth_cut(n_layers: int):
     """The launcher's config with its depth cut to ``n_layers``, for the
     f32 runs at published widths (restored by the caller)."""
-    import dataclasses
-
     from repro_torch.launch import serve
     orig = serve.arch_config
     serve.arch_config = lambda args: dataclasses.replace(orig(args),
@@ -1384,7 +1379,7 @@ def serve_moe() -> tuple:
     on the served weights beside their byte bound. Returns (launch counts,
     the captured kernel calls)."""
     from repro_torch.launch import serve
-    from repro_torch.models import mlp
+    from repro_torch.models import mlp, model
     cfg = serve.arch_config(serve.parse_args(MOE))
     decode_x = []
     moe_ffn = mlp.moe_ffn
@@ -1407,7 +1402,7 @@ def serve_moe() -> tuple:
     expect_served(eng, 4, 8)
     peak = torch.cuda.max_memory_allocated()
     moe = eng.params["layers"]["moe"]
-    layers = [_tree_layer(moe, i) for i in range(cfg.n_layers)]
+    layers = model._unbind_layers(moe, cfg.n_layers)
 
     def cycle():
         for p, x in zip(layers, decode_x):
@@ -1636,8 +1631,6 @@ def family_entry_points(dev) -> dict:
     for qwen2-vl-7b ``forward`` with a 4 x 4 patch grid's positions
     against ``prefill`` on the same positions. Returns the launch counts
     of each bf16 run."""
-    import dataclasses
-
     from repro_torch import models as M
     from repro_torch.configs import registry
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1712,10 +1705,357 @@ def family_entry_points(dev) -> dict:
     return runs
 
 
+# ---- phase 7f-7h: training (ROADMAP A10) ---------------------------------
+
+TRAIN_ARCH = ["--arch", "tinyllama-1.1b", "--device", "cuda"]
+TRAIN = TRAIN_ARCH + ["--batch", "8", "--seq", "1024"]
+TRAIN_STEPS = 8                 # AdamW steps at full width
+OTHER_OPT_STEPS = 2             # adamw8bit and adafactor each
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 4, 256
+MICRO_TOL = 1e-5                # microbatches == one batch (ce rel; grads
+                                # of each leaf's largest |value|)
+RESTART_RTOL = 1e-6             # the JAX restart test's tolerance
+CARD_CPU_RTOL = 1e-4            # one step on the card and on the CPU
+MOE_TRAIN = ["--arch", "deepseek-moe-16b", "--device", "cuda", "--batch",
+             "4", "--seq", "512"]
+
+
+def _train_setup(argv: list, cfg_edit=None):
+    """``launch.train``'s own parse and build, with the config edited by
+    ``cfg_edit`` (a depth or dtype cut) when given."""
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    orig = train.arch_config
+    if cfg_edit is not None:
+        train.arch_config = lambda a: cfg_edit(orig(a))
+    try:
+        return args, train.build(args)
+    finally:
+        train.arch_config = orig
+
+
+def _expect_no_launches(what: str) -> None:
+    from repro_torch.kernels import launch_counts
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched kernels {counts}: training "
+                             f"runs none of B1-B5")
+
+
+def _record(metrics: dict) -> dict:
+    rec = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(rec[k]) for k in ("loss", "ce", "grad_norm")):
+        raise AssertionError(f"non-finite training metrics {rec}")
+    return rec
+
+
+def _train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(model FLOPs of one training step: 3 x the forward's matmuls and
+    attention products, counted from the shapes; the FLOPs the device
+    also spends recomputing each block in the backward under remat)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    block = attn + 3 * d * cfg.d_ff
+    tokens = batch * seq
+    # chunked_causal_attention computes every (query, key) score of a chunk
+    # and masks the future: S x S products per head, QK^T and PV
+    scores = 4 * batch * cfg.n_heads * seq * seq * hd
+    blocks_fwd = cfg.n_layers * (2 * block * tokens + scores)
+    fwd = blocks_fwd + 2 * d * cfg.vocab * tokens
+    return 3 * fwd, blocks_fwd
+
+
+def _profile_step(step, state, batch, card: str) -> None:
+    """One more step under ``torch.profiler``: the device's busy share of
+    the step's host clock (the kernels' time summed), and the operators
+    whose kernels take it, by their own device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def own_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+    events = prof.key_averages()
+    busy = sum(own_ms(e) for e in events if e.device_type == DeviceType.CUDA)
+    ops = sorted(((own_ms(e), e.count, e.key) for e in events
+                  if e.device_type != DeviceType.CUDA and own_ms(e) > 0),
+                 reverse=True)
+    if not busy:
+        print(f"train profile: the profiler saw no device time (not "
+              f"measured) ({card})")
+        return
+    print(f"train profile [one AdamW step under torch.profiler, "
+          f"{wall_ms:.1f} ms host clock]: kernels {busy:.1f} ms on the "
+          f"device ({100 * busy / wall_ms:.1f} % busy); operators by their "
+          f"kernels' device time ({card}):")
+    for ms, n, name in ops[:12]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name}")
+
+
+def train_full_width(card: str) -> None:
+    """tinyllama-1.1b at its published widths (22 layers, d 2048, 32/4
+    heads, d_ff 5632, vocab 32000, bf16), seed-0 weights, the chain task,
+    batch 8 x seq 1024, through ``launch.train``'s parse and build: 8 AdamW
+    steps (ce, grad_norm, lr and the host time of each step around
+    ``torch.cuda.synchronize()``), tokens/s, model TFLOP/s against the bf16
+    peak and peak memory; then adamw8bit and adafactor 2 steps each with
+    their state bytes. Every launch counter stays 0."""
+    from repro_torch.kernels import reset_launch_counts
+    for opt, steps in (("adamw", TRAIN_STEPS),
+                       ("adamw8bit", OTHER_OPT_STEPS),
+                       ("adafactor", OTHER_OPT_STEPS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        args, s = _train_setup(TRAIN + ["--steps", str(steps),
+                                        "--optimizer", opt])
+        state, s.state = s.state, None      # the loop below holds the state
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = s.cfg
+        times, recs = [], []
+        for i in range(steps):
+            batch = s.loader.get(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = s.step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            recs.append(_record(metrics))
+            print(f"train [{cfg.arch_id}, published widths, "
+                  f"{cfg.param_dtype}, {opt}] step {i}: ce "
+                  f"{recs[-1]['ce']:.4f}, grad_norm "
+                  f"{recs[-1]['grad_norm']:.4f}, lr {recs[-1]['lr']:.3g}, "
+                  f"{times[-1]:.4f} s ({card})")
+        _expect_no_launches(f"training with {opt}")
+        peak = torch.cuda.max_memory_allocated()
+        if opt == "adamw":
+            _profile_step(s.step, state, batch, card)
+        opt_bytes = _tree_bytes(state["opt"])
+        p_bytes = _tree_bytes(state["params"])
+        tokens = args.batch * args.seq
+        if opt == "adamw":
+            steady = statistics.median(times[1:])
+            model, recompute = _train_flops(cfg, args.batch, args.seq)
+            tflops = model / steady / 1e12
+            print(f"train [{cfg.arch_id}, {cfg.n_layers} layers, d "
+                  f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                  f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}, "
+                  f"AdamW, batch {args.batch} x seq {args.seq}]: init "
+                  f"{init_s:.2f} s; "
+                  f"first step {times[0]:.4f} s, steps 1-{steps - 1} median "
+                  f"{steady:.4f} s (min {min(times[1:]):.4f}, max "
+                  f"{max(times[1:]):.4f}); {tokens / steady:.0f} tokens/s; "
+                  f"model {model / 1e12:.2f} TFLOP a step (3 x forward "
+                  f"matmuls and S x S attention products; remat's recompute "
+                  f"of the blocks, {recompute / 1e12:.2f} TFLOP more, not "
+                  f"counted) = {tflops:.1f} TFLOP/s, {100 * tflops / 989:.1f} "
+                  f"% of the 989 TFLOP/s bf16 peak; peak memory "
+                  f"{_gib(peak)} (params {_gib(p_bytes)}, AdamW state "
+                  f"{_gib(opt_bytes)}); ce {recs[0]['ce']:.4f} -> "
+                  f"{recs[-1]['ce']:.4f}; launch counters all 0 ({card})")
+        else:
+            print(f"train [{cfg.arch_id}, published widths, "
+                  f"{cfg.param_dtype}, {opt}]: {steps} steps finite, "
+                  f"median {statistics.median(times):.4f} s a step; "
+                  f"optimizer state {opt_bytes} B "
+                  f"({_gib(opt_bytes)}; params {_gib(p_bytes)}); peak memory "
+                  f"{_gib(peak)}; launch counters all 0 ({card})")
+        del state, s, batch, metrics
+    torch.cuda.empty_cache()
+
+
+def _f32_cut(n_layers: int):
+    def edit(cfg):
+        return dataclasses.replace(cfg, n_layers=n_layers,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    return edit
+
+
+def _tree_to(tree, device):
+    from repro_torch import tree as T
+    return T.tree_map(lambda x: x.to(device, copy=True), tree)
+
+
+def train_f32_identity(card: str) -> dict:
+    """tinyllama-1.1b at its published widths, f32, 2 of its 22 layers,
+    TF32 off, batch 4 x seq 256: (1) microbatches=4 against one batch, ce
+    within 1e-5 and every gradient leaf within 1e-5 of its largest |value|;
+    (2) a crash at step 6 restarted from the step-5 checkpoint against an
+    uninterrupted 10-step run (the runner, checkpoints on disk), every ce
+    within rtol 1e-6, under ``torch.use_deterministic_algorithms``; (3) the
+    same step from the same parameters on the card and on the CPU, ce and
+    grad_norm within 1e-4 relative. Returns the largest differences."""
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import RunnerConfig, TrainingRunner
+    out = {}
+    argv = TRAIN_ARCH + ["--batch", str(TRAIN_F32_BATCH), "--seq",
+                        str(TRAIN_F32_SEQ), "--steps", "10"]
+    reset_launch_counts()
+    args, s = _train_setup(argv, _f32_cut(F32_LAYERS))
+    cfg, state = s.cfg, s.state
+    batch = s.loader.get(0)
+
+    # (1) microbatches
+    g1, m1 = ts.compute_grads(state["params"], cfg, s.tcfg, batch)
+    g4, m4 = ts.compute_grads(state["params"], cfg,
+                              dataclasses.replace(s.tcfg, microbatches=4),
+                              batch)
+    ce_rel = abs(float(m4["ce"]) - float(m1["ce"])) / abs(float(m1["ce"]))
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(T.leaves(g4), T.leaves(g1)))
+    if ce_rel > MICRO_TOL or g_rel > MICRO_TOL:
+        raise AssertionError(f"microbatches=4 != one batch: ce {ce_rel:.3g},"
+                             f" grads {g_rel:.3g} (limit {MICRO_TOL})")
+    out["microbatches"] = (ce_rel, g_rel)
+    del g1, g4
+
+    # (2) restart, deterministic
+    root = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        runs = {}
+        for name, inj in (("clean", None),
+                          ("crash", FailureInjector(fail_at_steps=(6,)))):
+            runner = TrainingRunner(
+                s.step, state, s.loader.get,
+                RunnerConfig(ckpt_dir=str(root / name), ckpt_every=5,
+                             keep_last=2), injector=inj)
+            runner.run(10)
+            runs[name] = runner
+        took = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    crash = runs["crash"]
+    steps = [h["step"] for h in crash.history]
+    if crash.restarts != 1 or steps != list(range(6)) + list(range(6, 10)):
+        raise AssertionError(f"restart: {crash.restarts} restarts, steps "
+                             f"{steps}")
+    clean = {h["step"]: h["ce"] for h in runs["clean"].history}
+    rel = max(abs(h["ce"] - clean[h["step"]]) / abs(clean[h["step"]])
+              for h in crash.history)
+    if rel > RESTART_RTOL:
+        raise AssertionError(f"restarted losses differ by {rel:.3g} (limit "
+                             f"{RESTART_RTOL})")
+    out["restart"] = rel
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "clean").rglob("*")
+                     if f.is_file()) // 2
+    shutil.rmtree(root, ignore_errors=True)
+    _expect_no_launches("the f32 training runs")
+    print(f"train f32 [{cfg.arch_id}, published widths, {F32_LAYERS} of 22 "
+          f"layers, TF32 off, batch {TRAIN_F32_BATCH} x seq {TRAIN_F32_SEQ}]"
+          f": microbatches=4 == one batch (ce {ce_rel:.3g}, grads "
+          f"{g_rel:.3g} of each leaf's max; limit {MICRO_TOL}); crash at "
+          f"step 6, restart from the step-5 checkpoint: steps 6-9 ce equal "
+          f"the uninterrupted run's (largest relative difference {rel:.3g},"
+          f" limit {RESTART_RTOL}, deterministic algorithms on); two 10-step"
+          f" runs with {ckpt_bytes} B checkpoints in {took:.2f} s ({card})")
+
+    # (3) the card against the CPU, one step from the same parameters
+    cpu_state = _tree_to(state, "cpu")
+    cpu_batch = _tree_to(batch, "cpu")
+    _, mg = s.step(state, batch)
+    t0 = time.perf_counter()
+    _, mc = s.step(cpu_state, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    rels = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+            for k in ("ce", "grad_norm")}
+    if max(rels.values()) > CARD_CPU_RTOL:
+        raise AssertionError(f"card != CPU: {rels} (limit {CARD_CPU_RTOL})")
+    out["card_cpu"] = rels
+    print(f"train f32 step on the card == on the CPU from the same "
+          f"parameters: ce {float(mg['ce']):.6f} / {float(mc['ce']):.6f}, "
+          f"grad_norm {float(mg['grad_norm']):.6f} / "
+          f"{float(mc['grad_norm']):.6f}, relative {rels} (limit "
+          f"{CARD_CPU_RTOL}); the CPU step took {cpu_s:.1f} s")
+    del state, cpu_state, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe(card: str) -> None:
+    """deepseek-moe-16b at its published widths (d 2048, 64 routed experts
+    top-6 of 1408 + 2 shared, vocab 102400, bf16), its depth cut to 2 of
+    its 28 layers (the 28 with AdamW's f32 moments do not fit one card),
+    batch 4 x seq 512: 2 AdamW steps through ``launch.train``'s build,
+    losses finite, moe_aux > 0, and slots dropped at capacity."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import mlp
+    moe_ffn = mlp.moe_ffn
+    drops = []
+
+    def counted(p, x, moe, compute_dtype=None):
+        res = moe_ffn(p, x, moe, compute_dtype)
+        b, s = x.shape[:2]
+        n = s * moe.top_k
+        per = torch.nn.functional.one_hot(res[2].reshape(b, n),
+                                          moe.n_experts).sum(1)
+        drops.append(int(torch.clamp(per - mlp.capacity(n, moe),
+                                     min=0).sum()))
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    args, s = _train_setup(MOE_TRAIN + ["--steps", "2"],
+                           lambda c: dataclasses.replace(
+                               c, n_layers=F32_LAYERS))
+    state, s.state = s.state, None
+    mlp.moe_ffn = counted
+    recs, times = [], []
+    try:
+        for i in range(2):
+            batch = s.loader.get(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = s.step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            recs.append(_record(metrics))
+    finally:
+        mlp.moe_ffn = moe_ffn
+    _expect_no_launches("MoE training")
+    if not all(r["moe_aux"] > 0 for r in recs) or not sum(drops):
+        raise AssertionError(f"MoE training: moe_aux "
+                             f"{[r['moe_aux'] for r in recs]}, slots "
+                             f"dropped {drops}")
+    cfg = s.cfg
+    print(f"train MoE [{cfg.arch_id}, published widths, depth cut to "
+          f"{cfg.n_layers} of 28 layers, {cfg.param_dtype}, AdamW, batch "
+          f"{args.batch} x seq {args.seq}]: 2 steps, ce {recs[0]['ce']:.4f} -> "
+          f"{recs[1]['ce']:.4f}, moe_aux {recs[0]['moe_aux']:.4g} / "
+          f"{recs[1]['moe_aux']:.4g}, slots dropped at capacity per MoE "
+          f"call {min(drops)}-{max(drops)} ({len(drops)} calls with remat's "
+          f"recompute), {times[0]:.3f} / {times[1]:.3f} s a step, peak "
+          f"memory {_gib(torch.cuda.max_memory_allocated())}; launch "
+          f"counters all 0 ({card})")
+    del state, s, batch, metrics
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # before cuBLAS starts: the restart check (train_f32_identity) runs
+    # under torch.use_deterministic_algorithms, which needs a fixed cuBLAS
+    # workspace (this is the size PyTorch takes on Hopper by default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels as K
 
@@ -1859,6 +2199,10 @@ def main() -> int:
         for name, e in by_kernel.items():
             errs[name][what] = e
     family_entry_points(dev)
+
+    train_full_width(card)
+    train_f32_identity(card)
+    train_moe(card)
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -80,6 +80,11 @@ def moe_aux(probs: torch.Tensor, gate_e: torch.Tensor, cfg: MoEConfig
     return cfg.router_aux_weight * cfg.n_experts * torch.sum(me * ce)
 
 
+def capacity(n_slots: int, cfg: MoEConfig) -> int:
+    """Slots each expert takes from a row of ``n_slots`` routed slots."""
+    return int(max(1, round(n_slots / cfg.n_experts * cfg.capacity_factor)))
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, compute_dtype=None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The MoE layer without its aux loss, as the serving steps run it.
@@ -106,7 +111,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, compute_dtype=None
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
 
     # --- row-local sort-based dispatch ----------------------------------------
-    capacity = int(max(1, round(n / e * cfg.capacity_factor)))
+    cap = capacity(n, cfg)
     fe = gate_e.reshape(b, n)                                  # expert per slot
     ft = torch.arange(s, device=dev)[:, None].expand(s, k).reshape(n)
     fw = gate_w.reshape(b, n)
@@ -119,14 +124,14 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, compute_dtype=None
     counts = torch.nn.functional.one_hot(se, e).sum(dim=1)     # [B, E]
     start = torch.cumsum(counts, dim=-1) - counts              # [B, E]
     pos = torch.arange(n, device=dev)[None, :] - torch.gather(start, 1, se)
-    keep = pos < capacity
+    keep = pos < cap
 
     rows = torch.arange(b, device=dev)[:, None]
     e_idx = torch.where(keep, se, e)         # dropped slots land in row e
     p_idx = torch.where(keep, pos, 0)
     tok = xf[rows, st]                                         # [B, n, d]
 
-    buf = torch.zeros((b, e + 1, capacity, d), dtype=xf.dtype, device=dev)
+    buf = torch.zeros((b, e + 1, cap, d), dtype=xf.dtype, device=dev)
     buf[rows, e_idx, p_idx] = tok
     buf = buf[:, :e]                                           # [B, E, C, d]
 

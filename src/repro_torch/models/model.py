@@ -1,8 +1,7 @@
 """Model assembly for the KV-cache families (dense, moe, vlm, audio): init,
 the whole-prompt forward and prefill, decode state, decode step and chunked
-prefill, plus the bridge that carries the JAX package's parameters across.
-``loss_fn`` and training come with ROADMAP item A10; the ssm and hybrid
-families with A9b.
+prefill, the training loss, plus the bridge that carries the JAX package's
+parameters across. The ssm and hybrid families come with ROADMAP item A9b.
 
 Batch dict convention, as in the JAX package: ``"inputs"`` holds token ids
 [B, S] (``input_mode="tokens"``) or embeddings [B, S, d]
@@ -27,7 +26,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -87,10 +88,15 @@ def params_from_numpy(tree: PyTree, cfg: ArchConfig, device="cuda") -> PyTree:
     return conv(tree)
 
 
-def _layer(tree: PyTree, i: int) -> PyTree:
+def _unbind_layers(tree: PyTree, n: int) -> list[PyTree]:
+    """The n per-layer trees of a stacked [n, ...] tree, each leaf unbound
+    once: views equal to ``tree[i]``. Under autograd the backward of one
+    ``unbind`` is one ``stack``, where n separate ``tree[i]`` would each
+    add a zero tensor of the whole stack."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _head(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -127,18 +133,55 @@ def forward(params: PyTree, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole sequence at once. batch: {"inputs": ids [B, S] or
     embeddings [B, S, d], optional "positions"}. Returns (logits [B, S, V],
-    the MoE aux loss summed over layers; 0 without experts)."""
+    the MoE aux loss summed over layers; 0 without experts).
+
+    Under autograd with ``cfg.remat == "block"`` each block is
+    recomputed in the backward instead of keeping its activations, as the
+    JAX package's ``jax.checkpoint`` of the scanned block."""
     _check_family(cfg)
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
     positions = _default_positions(cfg, batch, b, s, inputs.device)
     x = _stem(params, cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = B.transformer_block_apply(_layer(params["layers"], i), x,
-                                         positions, cfg)
+    remat = (cfg.remat == "block" and torch.is_grad_enabled()
+             and any(x.requires_grad for x in T.leaves(params["layers"])))
+    for p in _unbind_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x, a = checkpoint(B.transformer_block_apply, p, x, positions, cfg,
+                              use_reentrant=False)
+        else:
+            x, a = B.transformer_block_apply(p, x, positions, cfg)
         aux = aux + a
     return _head(params, cfg, x), aux
+
+
+def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy + z-loss + the MoE aux loss. batch: the
+    ``forward`` batch plus "labels" [B, S]; labels < 0 are masked. Returns
+    (loss, {"loss", "ce", "z_loss", "moe_aux", "accuracy", "tokens"}).
+
+    The max logit is held constant under differentiation (the JAX
+    package's ``stop_gradient``). The gold logit is gathered where the JAX
+    package sums a one-hot ``where``: both pick the one f32 value exactly,
+    and the gather builds no [B, S, V] mask."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    labels = torch.clamp(labels, min=0)
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1).detach()
+    lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    count = torch.clamp(mask.sum(), min=1).to(torch.int32)
+    ce = nll.sum() / count
+    zl = cfg.z_loss * ((lse * mask) ** 2).sum() / count
+    loss = ce + zl + aux
+    acc = ((lf.argmax(-1) == labels) * mask).sum() / count
+    return loss, {"loss": loss, "ce": ce, "z_loss": zl, "moe_aux": aux,
+                  "accuracy": acc, "tokens": count}
 
 
 def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
@@ -152,9 +195,10 @@ def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
     positions = _default_positions(cfg, batch, b, s, inputs.device)
     x = _stem(params, cfg, inputs)
     ck, cv = state["cache_k"], state["cache_v"]
-    for i in range(cfg.n_layers):   # each layer writes ck[i], cv[i] in place
+    # each layer writes ck[i], cv[i] in place
+    for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
         x, _, _ = B.transformer_block_prefill(
-            _layer(params["layers"], i), x, positions, ck[i], cv[i], cfg)
+            p, x, positions, ck[i], cv[i], cfg)
     logits = _head(params, cfg, x[:, -1:])[:, 0]
     return dict(state, len=state["len"] + s), logits
 
@@ -189,9 +233,9 @@ def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
     _check_family(cfg)
     ck, cv, lens = state["cache_k"], state["cache_v"], state["len"]
     x = _stem(params, cfg, batch["inputs"], offset=lens)
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
         x, k_i, v_i = B.transformer_block_decode(
-            _layer(params["layers"], i), x, ck[i], cv[i], lens, cfg,
+            p, x, ck[i], cv[i], lens, cfg,
             kernel_mode=kernel_mode, seq_tile=seq_tile,
             length_mask=length_mask, dynamic_grid=dynamic_grid,
             num_kv_splits=num_kv_splits, port_mix=port_mix)
@@ -222,9 +266,9 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
     offset = state["len"]
     x = _stem(params, cfg, inputs, offset=offset)
     ck, cv = state["cache_k"], state["cache_v"]
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
         x, k_i, v_i = B.transformer_block_prefill_chunk(
-            _layer(params["layers"], i), x, offset, chunk_len, ck[i], cv[i],
+            p, x, offset, chunk_len, ck[i], cv[i],
             cfg, kernel_mode=kernel_mode, seq_tile=seq_tile,
             dynamic_grid=dynamic_grid, port_mix=port_mix)
         _store(ck, i, k_i)

@@ -820,3 +820,117 @@ def test_moe_apply_on_card_matches_its_cpu_result(rng, cuda_device):
                                       (4, 2, 2)), atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(out_c.cpu(), out, atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(aux_c.cpu(), aux, atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---- training (ROADMAP A10): no kernel; the card against the CPU ---------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tkw", [
+    {}, {"microbatches": 2}, {"grad_compression": "int8_ef", "n_pods": 2},
+    {"optimizer": "adamw8bit"}, {"optimizer": "adafactor"}],
+    ids=["adamw", "microbatches2", "int8_ef", "adamw8bit", "adafactor"])
+def test_train_step_on_card_matches_cpu(cuda_device, tkw):
+    """Three steps of reduced tinyllama-1.1b (f32, TF32 off) from the same
+    state on the card and on the CPU: ce, grad_norm and lr within 1e-4
+    relative at every step, and no kernel launched (training runs none of
+    B1-B5, as in JAX)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.train import train_step as ts
+    cfg = registry.get("tinyllama-1.1b", reduced=True)
+    tcfg = ts.TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10,
+                          **tkw)
+    step = ts.make_train_step(cfg, tcfg)
+    st_cpu = ts.init_train_state(
+        init_params(cfg, torch.Generator().manual_seed(0), "cpu"), tcfg)
+    st_card = T.tree_map(lambda x: x.to(cuda_device), st_cpu)
+    reset_launch_counts()
+    for i in range(3):
+        nb = make_batch(cfg, DataConfig(seed=1), i, 8, 16)
+        st_cpu, mc = step(st_cpu, {k: torch.from_numpy(v)
+                                   for k, v in nb.items()})
+        st_card, mg = step(st_card, {k: torch.from_numpy(v).to(cuda_device)
+                                     for k, v in nb.items()})
+        assert mg["ce"].device == st_card["opt"]["step"].device
+        for k in ("ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-4,
+                                       err_msg=f"step {i} {k}")
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_from_card(cuda_device, tmp_path):
+    """A state on the card (bf16 params, f32 moments, 8-bit codes, an
+    int32 step) restores bit-exact onto the card."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import ckpt
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    t = {"params": {"w": torch.randn((300, 70), generator=g,
+                                     device=cuda_device).to(torch.bfloat16)},
+         "opt": {"step": torch.tensor(3, dtype=torch.int32,
+                                      device=cuda_device),
+                 "m": {"q": torch.randint(-127, 128, (5, 64),
+                                          dtype=torch.int8,
+                                          device=cuda_device),
+                       "scale": torch.rand((5, 1), device=cuda_device)},
+                 "v": torch.rand((300, 70), device=cuda_device)}}
+    ckpt.save(str(tmp_path), 3, t)
+    restored, m = ckpt.restore(str(tmp_path), t)
+    assert m["step"] == 3
+    for (pa, a), (pb, b) in zip(T.leaves_with_path(t),
+                                T.leaves_with_path(restored), strict=True):
+        assert pa == pb and b.device == a.device and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), pa
+
+
+def _near_tie(x: np.ndarray, signed: bool) -> np.ndarray:
+    """Where ``optim.quantized._quantize`` rounds a value within 1e-5 of a
+    half-integer (computed in f64, blocked as there): a last-bit difference
+    in log10 may move such a code by one."""
+    from repro_torch.optim import quantized as Q
+    x = np.asarray(x, np.float64)
+    pad = (-x.shape[-1]) % Q.BLOCK
+    x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+    blocks = x.reshape(*x.shape[:-1], -1, Q.BLOCK)
+    a = np.abs(blocks) / np.maximum(np.abs(blocks).max(-1, keepdims=True),
+                                    1e-30)
+    pre = (np.log10(np.maximum(a, 1e-7)) + 7.0) / 7.0 * (127.0 if signed
+                                                         else 255.0)
+    return np.abs(pre - np.floor(pre) - 0.5) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False])
+def test_quantizer_on_card_matches_cpu(cuda_device, signed):
+    """The 8-bit optimizer's log-dynamic codes at a 2^20-element leaf
+    (magnitudes over 9 decades, zeros): scales equal, codes equal except
+    at ties and there one apart, dequantized values within 4e-6
+    relative."""
+    from repro_torch.optim import quantized as Q
+    rng = np.random.default_rng(11)
+    n = 2 ** 20
+    x = rng.uniform(0.3, 1.0, n) * 10.0 ** rng.integers(-8, 1, n)
+    if signed:
+        x *= np.where(rng.random(n) < 0.5, -1, 1)
+    x[rng.random(n) < 0.05] = 0.0
+    x = x.astype(np.float32).reshape(1024, 1024)
+    q_cpu = Q._quantize(torch.from_numpy(x), signed)
+    q_card = Q._quantize(torch.from_numpy(x).to(cuda_device), signed)
+    assert torch.equal(q_card["scale"].cpu(), q_cpu["scale"])
+    got = q_card["q"].cpu().numpy().astype(np.int32)
+    want = q_cpu["q"].numpy().astype(np.int32)
+    diff = got != want
+    assert np.all(_near_tie(x, signed)[diff])
+    assert np.all(np.abs(got - want)[diff] == 1)
+    d_card = Q._dequantize({"q": q_cpu["q"].to(cuda_device),
+                            "scale": q_cpu["scale"].to(cuda_device)}, x.shape)
+    # the card's and the CPU's f32 pow in _dequantize differ by up to
+    # 1.27e-6 relative (NVIDIA H100 80GB HBM3)
+    np.testing.assert_allclose(d_card.cpu().numpy(),
+                               Q._dequantize(q_cpu, x.shape).numpy(),
+                               rtol=4e-6, atol=0)
