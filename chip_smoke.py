@@ -93,6 +93,23 @@ Phases (any failure exits non-zero before the final line):
    logits finite), then in f32 at 2 layers multiport == reference
    (argmax, 1e-4), and qwen2-vl-7b's ``forward`` == ``prefill`` on a
    4 x 4 patch grid's (t, h, w) positions;
+7i. zamba2-7b (hybrid: 13 groups of a shared attention block, G 1 and D
+   112, before 6 Mamba2 blocks, + 3 tail blocks) and rwkv6-3b (ssm),
+   one after the other, through the model entry points at the published
+   widths in bf16: ``prefill`` of 4 x 1024 seeded tokens and 16 multiport
+   ``decode_step``s, logits finite (zamba2: B1 = 13 x 16 and every other
+   counter 0, then at num_kv_splits=8 the split pair 13 x 16 and B1 0;
+   rwkv6-3b: no launch), peak memory, the prefill's host clock and a
+   decode step's device time beside the weight-read bound; one rwkv6-3b
+   prefill under ``torch.profiler`` (the linear-scan engine's share). B1
+   and the split pair at ns 2, 4 and 8 on zamba2's decode call, held
+   against their plain versions (4e-2) and timed beside them, SDPA and
+   the bound. In f32 at reduced depth (zamba2-7b 13 slots, rwkv6-3b 2
+   layers), TF32 off: prefill + decode == forward (atol 3e-3, rtol 1e-3),
+   zamba2 multiport == reference (2e-4 / 1e-4, argmax identical), split
+   ns 8 == serial greedy tokens, card == CPU on one forward (1e-4). Then
+   2 AdamW steps of each through ``launch.train`` (rwkv6-3b at 8 of 32
+   layers, zamba2-7b at 7 of 81 slots), losses finite, no launch;
 8. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -186,6 +203,64 @@ def _ms(fn, reps: int = 20, batches: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def _graph_ms(fn) -> float:
+    """The device time of one call alone, without the host issuing its
+    kernels: ``fn`` captured once as a CUDA graph, its replay timed by
+    ``_ms``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _ms(graph.replay, reps=5, batches=5)
+
+
+def _profiled(fn, module=None, name: str | None = None) -> dict:
+    """One call of ``fn`` under ``torch.profiler``; with ``module`` and
+    ``name``, each call of ``module.name`` inside a ``record_function``
+    range of that name. Returns the host clock (ms, around
+    ``torch.cuda.synchronize()``), the kernels' device time summed and
+    their count (the range's own device-side annotation left out), the
+    operators as (their own kernels' device ms, calls, name), largest
+    first, and the range's device ms, host ms and calls (None without a
+    range)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if module is not None:
+        inner = getattr(module, name)
+
+        def annotated(*a, **kw):
+            with record_function(name):
+                return inner(*a, **kw)
+        setattr(module, name, annotated)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if module is not None:
+            setattr(module, name, inner)
+
+    def own_ms(e, field="self_device_time_total"):
+        return getattr(e, field, getattr(e, field.replace("device", "cuda"),
+                                         0)) / 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.key != name]
+    ops = sorted(((own_ms(e), e.count, e.key) for e in events
+                  if e.device_type != DeviceType.CUDA and own_ms(e) > 0),
+                 reverse=True)
+    ranged = [e for e in events
+              if e.key == name and e.device_type != DeviceType.CUDA]
+    return {"wall_ms": wall_ms, "busy_ms": sum(own_ms(e) for e in kernels),
+            "kernels": sum(e.count for e in kernels), "ops": ops,
+            "range": (own_ms(ranged[0], "device_time_total"),
+                      ranged[0].cpu_time_total / 1e3, ranged[0].count)
+            if ranged else None}
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -757,8 +832,10 @@ def _decode_library_ms(args) -> float:
     q, ck, cv, _, _, ln = args
     kpos = torch.arange(ck.shape[1], device=q.device)
     mask = (kpos[None] <= ln[:, None].long())[:, None, None, :]
-    qf, kt, vt = q.float()[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
-    return _ms(lambda: _sdpa(qf, kt, vt, mask))
+    # q in the caches' dtype: f32 on the serving paths, bf16 on zamba2-7b's
+    qc, kt, vt = (q.to(ck.dtype)[:, :, None], ck.transpose(1, 2),
+                  cv.transpose(1, 2))
+    return _ms(lambda: _sdpa(qc, kt, vt, mask))
 
 
 def time_decode(args, kw) -> dict:
@@ -1423,10 +1500,7 @@ def serve_moe() -> tuple:
     products_ms = _ms(expert_products, reps=5, batches=5)
     # the same cycle as one CUDA graph: the device's time alone, without
     # the host issuing each layer's few dozen small ops
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        cycle()
-    graph_ms = _ms(graph.replay, reps=5, batches=5)
+    graph_ms = _graph_ms(cycle)
     nbytes = _tree_bytes(moe) + 2 * cfg.n_layers * x0.numel() * \
         x0.element_size()
     # every expert's capacity slots run (the formulation computes them all)
@@ -1462,7 +1536,7 @@ def serve_moe() -> tuple:
           f"bound of the routed experts alone {r_bound:.6f} ms ({r_by}: "
           f"{min(routed)}-{max(routed)} of {m.n_experts} experts routed a "
           f"layer, {r_bytes} B, {r_flops / 1e9:.2f} GFLOP)")
-    del eng, moe, layers, decode_x, buf, graph
+    del eng, moe, layers, decode_x, buf
     torch.cuda.empty_cache()
     return counts, cap
 
@@ -1769,24 +1843,8 @@ def _profile_step(step, state, batch, card: str) -> None:
     """One more step under ``torch.profiler``: the device's busy share of
     the step's host clock (the kernels' time summed), and the operators
     whose kernels take it, by their own device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def own_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) / 1e3
-    events = prof.key_averages()
-    busy = sum(own_ms(e) for e in events if e.device_type == DeviceType.CUDA)
-    ops = sorted(((own_ms(e), e.count, e.key) for e in events
-                  if e.device_type != DeviceType.CUDA and own_ms(e) > 0),
-                 reverse=True)
+    prof = _profiled(lambda: step(state, batch))
+    busy, wall_ms = prof["busy_ms"], prof["wall_ms"]
     if not busy:
         print(f"train profile: the profiler saw no device time (not "
               f"measured) ({card})")
@@ -1795,7 +1853,7 @@ def _profile_step(step, state, batch, card: str) -> None:
           f"{wall_ms:.1f} ms host clock]: kernels {busy:.1f} ms on the "
           f"device ({100 * busy / wall_ms:.1f} % busy); operators by their "
           f"kernels' device time ({card}):")
-    for ms, n, name in ops[:12]:
+    for ms, n, name in prof["ops"][:12]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name}")
 
 
@@ -2048,6 +2106,476 @@ def train_moe(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 7i: the attention-free and hybrid families (ROADMAP A9b) ------
+
+# the model entry points at the published widths in bf16: prefill of
+# 4 x 1024 seeded tokens, then 16 teacher-forced decode steps; the caches
+# hold room for the timed steps after them
+SSM_ROWS, SSM_PROMPT, SSM_STEPS, SSM_CACHE = 4, 1024, 16, 1152
+SSM_SPLITS = 8                        # zamba2's split-KV run
+# f32 at the published widths and reduced depth (TF32 off): zamba2-7b at 13
+# layer slots (2 groups of 6 + 1 tail), rwkv6-3b at 2 layers; prefill of
+# 2 x 256 tokens, 8 decode steps, against forward over all 264
+SSM_F32_SLOTS = {"zamba2-7b": 13, "rwkv6-3b": 2}
+SSM_F32_ROWS, SSM_F32_PROMPT, SSM_F32_STEPS, SSM_F32_CACHE = 2, 256, 8, 288
+# multiport against reference decode in f32: the JAX suite's
+# (tests/models/test_decode_equiv.py)
+HYBRID_MODE_TOL = dict(atol=2e-4, rtol=1e-4)
+# training: 2 AdamW steps at the published widths, depth cut so that the
+# functional step (two AdamW states during the update, the grads and
+# their clipped f32 copy) fits one card
+SSM_TRAIN_SLOTS = {"rwkv6-3b": 8, "zamba2-7b": 7}
+SSM_TRAIN = ["--device", "cuda", "--batch", "4", "--seq", "512",
+             "--steps", "2"]
+
+
+def _prefill_decode(M, cfg, params, prompt, feed, cache: int, **kw) -> tuple:
+    """``prefill`` of ``prompt`` [B, P], then one ``decode_step`` per
+    column of ``feed`` [B, n] (teacher-forced), or ``feed`` greedy steps
+    when it is an int. Returns (prefill logits, each step's logits, the
+    tokens fed [B, n], the prefill's host seconds, the decode state)."""
+    state = M.init_decode_state(cfg, prompt.shape[0], cache,
+                                device=prompt.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, lg = M.prefill(params, cfg, state, {"inputs": prompt})
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    greedy = isinstance(feed, int)
+    out, fed, tok = [], [], lg.argmax(-1)
+    for t in range(feed if greedy else feed.shape[1]):
+        x = tok[:, None] if greedy else feed[:, t:t + 1]
+        state, step = M.decode_step(params, cfg, state, {"inputs": x}, **kw)
+        out.append(step)
+        fed.append(x)
+        tok = step.argmax(-1)
+    return lg, out, torch.cat(fed, 1), took, state
+
+
+def _host_ms(fn) -> float:
+    """The host clock of one call (after one to warm up), ending in
+    ``torch.cuda.synchronize()``, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _step_bytes(cfg, params, state) -> tuple[int, int]:
+    """(the weights' bytes but the embedding table's, the bytes one decode
+    step of rwkv6-3b or zamba2-7b must move besides them: the recurrent
+    states read and written, each live cached K/V row of the shared block
+    read once, B embedding rows)."""
+    e = params["embed"]["w"]
+    w = _tree_bytes(params) - e.numel() * e.element_size()
+    b = state["len"].shape[0]
+    live = int(state["len"].max()) + 1
+    moved = b * e.shape[1] * e.element_size()
+    for key, x in state.items():
+        if key in ("attn_k", "attn_v"):
+            moved += x[:, :, :live].numel() * x.element_size()
+        elif key != "len":
+            moved += 2 * _tree_bytes(x)
+    return w, moved
+
+
+def ssm_full_width(arch: str, dev, card: str) -> dict:
+    """``arch`` at its published widths in bf16, seed-0 weights, through
+    the model entry points with the launch counters set to 0 just before
+    and read just after: ``prefill`` of 4 x 1024 seeded tokens, then 16
+    multiport ``decode_step``s (zamba2-7b: B1 = 13 x 16, every other
+    counter 0; then at num_kv_splits=8 the split pair 13 x 16, B1 0;
+    rwkv6-3b: every counter 0), logits finite. Prints the peak memory, the
+    prefill's host clock and a decode step's device time beside the
+    weight-read bound. Returns the captured decode calls of zamba2-7b by
+    split count."""
+    from repro_torch import models as M
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.kernels import kv_multiport as kvmp
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = registry.get(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, gen, device=dev)
+    ids = torch.randint(0, cfg.vocab, (SSM_ROWS, SSM_PROMPT + SSM_STEPS),
+                        generator=gen, device=dev)
+    prompt, feed = ids[:, :SSM_PROMPT], ids[:, SSM_PROMPT:]
+    hybrid = cfg.family == "hybrid"
+    groups = cfg.n_layers // cfg.hybrid.group_size if hybrid else 0
+    calls, lines = {}, []
+    for ns in (1, SSM_SPLITS) if hybrid else (1,):
+        cap = MainPathCapture()
+        cap.hook(kvmp, "fused_append_attend", "decode")
+        try:
+            reset_launch_counts()
+            lg, steps, _, took, state = _prefill_decode(
+                M, cfg, params, prompt, feed, SSM_CACHE,
+                kernel_mode="multiport", num_kv_splits=ns)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            cap.restore()
+        want = {k: 0 for k in counts}
+        if hybrid and ns == 1:
+            want["kv_decode_append_attend"] = groups * SSM_STEPS
+        elif hybrid:
+            want.update(kv_decode_split_partial=groups * SSM_STEPS,
+                        kv_decode_split_combine=groups * SSM_STEPS)
+        if counts != want:
+            raise AssertionError(f"{arch} ns={ns}: launch counts {counts} "
+                                 f"!= {want}")
+        if not all(bool(torch.isfinite(g).all()) and tuple(g.shape) ==
+                   (SSM_ROWS, cfg.vocab) for g in [lg, *steps]):
+            raise AssertionError(f"{arch}: logits not finite or misshapen")
+        if hybrid:
+            calls[ns] = cap.typical("decode")
+        lines.append(f"num_kv_splits={ns}: launch counters {counts}, "
+                     f"prefill {took:.3f} s host clock")
+        del cap
+    peak = torch.cuda.max_memory_allocated()
+    x = feed[:, :1]
+
+    def step():
+        M.decode_step(params, cfg, state, {"inputs": x},
+                      kernel_mode="multiport")
+    host_ms = _host_ms(step)
+    graph_ms = _graph_ms(step)
+    w_all = _tree_bytes(params)
+    w, moved = _step_bytes(cfg, params, state)
+    weight_bound = w_all / H100_BYTES_PER_S * 1e3
+    step_bound = (w + moved) / H100_BYTES_PER_S * 1e3
+    n = sum(t.numel() for t in T.leaves(params))
+    shape = (f"{cfg.n_layers} layer slots = {groups} groups x "
+             f"{cfg.hybrid.group_size} Mamba2 + "
+             f"{cfg.n_layers - groups * cfg.hybrid.group_size} tail, d "
+             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of D "
+             f"{cfg.head_dim_}, Mamba2 d_in {cfg.ssm.expand * cfg.d_model} "
+             f"state {cfg.ssm.state_dim}" if hybrid else
+             f"{cfg.n_layers} layers, d {cfg.d_model}, "
+             f"{cfg.d_model // cfg.rwkv.head_dim} heads of "
+             f"{cfg.rwkv.head_dim}, LoRA {cfg.rwkv.lora_dim}, d_ff "
+             f"{cfg.d_ff}")
+    print(f"{arch} [published widths, bf16: {shape}, vocab {cfg.vocab}; "
+          f"{n / 1e9:.3f} B parameters, {_gib(w_all)}]: prefill of "
+          f"{SSM_ROWS} x {SSM_PROMPT} + {SSM_STEPS} multiport decode steps, "
+          f"logits finite; " + "; ".join(lines))
+    print(f"{arch} decode step [{SSM_ROWS} rows at position "
+          f"{int(state['len'][0])}]: {host_ms:.3f} ms host clock launched "
+          f"op by op, {graph_ms:.3f} ms on the device as one CUDA graph "
+          f"(CUDA events over its replays); weight-read bound "
+          f"{w_all / 1e9:.2f} GB / 3.35 TB/s = {weight_bound:.3f} ms; the "
+          f"step's byte bound "
+          f"{step_bound:.3f} ms (weights once but the embedding table, "
+          f"{_gib(moved)} of recurrent states read and written, live K/V "
+          f"rows); peak memory {_gib(peak)} ({card})")
+    _print_profile(f"{arch} decode step", _profiled(step), card)
+    if not hybrid:
+        from repro_torch.models import rwkv
+        fresh = M.init_decode_state(cfg, SSM_ROWS, SSM_CACHE, device=dev)
+        _print_profile(f"{arch} prefill of {SSM_ROWS} x {SSM_PROMPT}",
+                       _profiled(lambda: M.prefill(params, cfg, fresh,
+                                                   {"inputs": prompt}),
+                                 rwkv, "chunked_linear_attention"), card)
+        del fresh
+    del params, state, lg, steps
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _print_profile(what: str, prof: dict, card: str) -> None:
+    if not prof["busy_ms"]:
+        print(f"{what} under torch.profiler: not measured (the profiler saw "
+              f"no device time) ({card})")
+        return
+    top = ", ".join(f"{k} {ms:.2f} ms" for ms, _, k in prof["ops"][:6])
+    line = (f"{what} under torch.profiler [{prof['wall_ms']:.1f} ms host "
+            f"clock]: {prof['kernels']} kernels, {prof['busy_ms']:.2f} ms of "
+            f"device time summed ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+            f" % of the host clock); by operator: {top}")
+    if prof["range"] is not None:
+        dev, host, n = prof["range"]
+        line += (f"; the linear-scan engine ({n} calls) {dev:.1f} ms of the "
+                 f"device time ({100 * dev / prof['busy_ms']:.1f} %), "
+                 f"{host:.1f} ms of the host clock "
+                 f"({100 * host / prof['wall_ms']:.1f} %)")
+    print(f"{line} ({card})")
+
+
+def hybrid_rows(calls: dict) -> dict:
+    """B1 on zamba2-7b's decode call (G 1, D 112, Hkv 32, bf16), held
+    against its plain version and timed beside it, SDPA and its bound; the
+    split pair at ns 2, 4 and 8 on the same call against its plain version
+    and the serial kernel, timed beside its plain version; stage 2 alone
+    on the ns=8 run's own call. Returns the errors by kernel."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    args, kw = calls[1]
+    q, ck, ln = args[0], args[1], args[5]
+    row = time_decode(args, kw)
+    c, clusters, fits = cluster_plan(args, kw)
+    print(f"kernel kv_decode_append_attend on zamba2-7b's decode call "
+          f"[{row['shape']}]: max_abs_err {row['max_abs_err']:.3g}, kernel "
+          f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+          f"{row['library']} {row['library_ms']:.5f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}); one launch of "
+          f"{clusters} clusters of {c} blocks (clusters the card holds at "
+          f"once, by size: {fits})")
+    base = {k: v for k, v in kw.items() if k != "num_kv_splits"}
+    tile, n = kvmp.launch_geometry(ck.shape[1], base.get("seq_tile", 128),
+                                   base.get("live_len"),
+                                   base.get("dynamic_grid", False))
+    nbytes, keys = _decode_bytes(args, n * tile)
+    bound, by = _bound_ms(nbytes, 4 * q.shape[1] * ck.shape[3] * keys)
+    pair = 0.0
+    for ns in SPLITS:
+        pair = max(pair, *_split_agree(args, base, ns))
+        pair_ms = _ms(lambda: kvmp.fused_append_attend(
+            *args, num_kv_splits=ns, **base))
+        plain_ms = _ms(lambda: kvmp.fused_append_attend_split_plain(
+            *args, seq_tile=tile, n_tiles=n,
+            length_mask=base.get("length_mask", True), num_kv_splits=ns))
+        print(f"split pair at ns={ns} on zamba2-7b's decode call: "
+              f"{pair_ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA "
+              f"{row['library_ms']:.5f} ms, bound {bound:.6f} ms ({by})")
+    s_args, s_kw = calls[SSM_SPLITS]
+    _, combine = _hold_split_pair(s_args, s_kw, (SSM_SPLITS,))
+    errs = {"kv_decode_append_attend": row["max_abs_err"],
+            "kv_decode_split_partial": pair,
+            "kv_decode_split_combine": combine}
+    # 4e-2 of the output's scale, and never looser than 4e-2 itself
+    mean, top = _plain_size(args, base)
+    s_mean, s_top = _plain_size(s_args, s_kw)
+    limits = {"kv_decode_append_attend": BF16_TOL * min(1.0, top),
+              "kv_decode_split_partial": BF16_TOL * min(1.0, top),
+              "kv_decode_split_combine": BF16_TOL * min(1.0, s_top)}
+    if any(errs[k] > limits[k] for k in errs):
+        raise AssertionError(f"a kernel disagrees with its plain version on "
+                             f"zamba2-7b's decode call: {errs} beyond "
+                             f"{BF16_TOL} x min(1, max |o_plain|): {limits}")
+    print(f"zamba2-7b's decode call [q {tuple(q.shape)} {q.dtype}, caches "
+          f"{tuple(ck.shape)} {ck.dtype}, lens {ln.tolist()}; plain output "
+          f"|o| mean {mean:.4g}, max {top:.4g} (the ns={SSM_SPLITS} run's "
+          f"call: {s_mean:.4g}, {s_top:.4g})]: B1, the split pair at ns "
+          f"{SPLITS} and stage 2 alone against their plain versions {errs} "
+          f"(limits {BF16_TOL} x min(1, max |o_plain|): {limits})")
+    return errs
+
+
+def _as_f32(args) -> tuple:
+    """A call's arguments with every floating tensor cast to f32."""
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def _plain_size(args, kw) -> tuple[float, float]:
+    """(mean, max) |o| of the plain decode function on a copy of a call."""
+    from repro_torch.kernels import kv_multiport as kvmp
+    tile, n = kvmp.launch_geometry(args[1].shape[1], kw.get("seq_tile", 128),
+                                   kw.get("live_len"),
+                                   kw.get("dynamic_grid", False))
+    o, _ = kvmp.fused_append_attend_plain(
+        *_clones(args), seq_tile=tile, n_tiles=n,
+        length_mask=kw.get("length_mask", True))
+    o = o.float().abs()
+    return float(o.mean()), float(o.max())
+
+
+def hybrid_call_f32(calls: dict) -> dict:
+    """zamba2-7b's decode calls cast to f32 (same rows, keys, lengths and
+    tile counts): B1 and the split pair at ns 2, 4 and 8 on the serial
+    run's call, stage 2 alone on the ns=8 run's, against their plain
+    versions at 1e-5. Returns the errors by kernel."""
+    args, kw = calls[1]
+    f32 = _as_f32(args)
+    s_args, s_kw = calls[SSM_SPLITS]
+    base = {k: v for k, v in kw.items() if k != "num_kv_splits"}
+    pair, _ = _hold_split_pair(f32, base, SPLITS)
+    _, combine = _hold_split_pair(_as_f32(s_args), s_kw, (SSM_SPLITS,))
+    errs = {"kv_decode_append_attend": _decode_agree(f32, base),
+            "kv_decode_split_partial": pair,
+            "kv_decode_split_combine": combine}
+    mean, top = _plain_size(f32, base)
+    if max(errs.values()) > F32_TOL:
+        raise AssertionError(f"a kernel disagrees with its plain version on "
+                             f"zamba2-7b's decode call in f32 (limit "
+                             f"{F32_TOL}): {errs}")
+    print(f"zamba2-7b's decode call cast to f32 [q {tuple(f32[0].shape)}, "
+          f"caches {tuple(f32[1].shape)}, lens {f32[5].tolist()}; plain "
+          f"output |o| mean {mean:.4g}, max {top:.4g}]: B1, the split pair "
+          f"at ns {SPLITS} and stage 2 alone against their plain versions "
+          f"{errs} (limit {F32_TOL})")
+    return errs
+
+
+def ssm_f32_identities(dev) -> dict:
+    """zamba2-7b at 13 layer slots and rwkv6-3b at 2 layers, published
+    widths, f32, TF32 off: ``prefill`` + teacher-forced ``decode_step``s
+    equal ``forward`` at the same positions (atol 3e-3, rtol 1e-3, argmax
+    identical); for zamba2-7b multiport (B1 = 2 a step) equals reference
+    (no launch) within 2e-4 / 1e-4 with identical argmax, and split-KV at
+    ns 8 (the split pair 2 a step, B1 0) gives the serial run's greedy
+    tokens; the card equals the CPU on one ``forward`` (1e-4). B1 and the
+    split pair are held against their plain versions on these runs' calls
+    (1e-5). Returns those errors by kernel."""
+    from repro_torch import models as M
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.kernels import kv_multiport as kvmp
+    from repro_torch.kernels import launch_counts
+    errs = {}
+    for arch, slots in SSM_F32_SLOTS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(registry.get(arch), n_layers=slots,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = M.init_params(cfg, gen, device=dev)
+        n = SSM_F32_PROMPT + SSM_F32_STEPS
+        ids = torch.randint(0, cfg.vocab, (SSM_F32_ROWS, n), generator=gen,
+                            device=dev)
+        prompt, feed = ids[:, :SSM_F32_PROMPT], ids[:, SSM_F32_PROMPT:]
+        full, _ = M.forward(params, cfg, {"inputs": ids})
+        hybrid = cfg.family == "hybrid"
+        groups = slots // cfg.hybrid.group_size if hybrid else 0
+        runs = {}
+        for name, kw in (("multiport", dict(kernel_mode="multiport")),
+                         ("reference", dict(kernel_mode="reference")),
+                         ("split 8", dict(kernel_mode="multiport",
+                                          num_kv_splits=SSM_SPLITS))):
+            if not hybrid and name != "multiport":
+                continue
+            cap = MainPathCapture()
+            cap.hook(kvmp, "fused_append_attend", "decode")
+            before = launch_counts()
+            try:
+                lg, steps, _, _, _ = _prefill_decode(
+                    M, cfg, params, prompt, feed, SSM_F32_CACHE, **kw)
+                torch.cuda.synchronize()
+            finally:
+                cap.restore()
+            ran = {k: v - before[k] for k, v in launch_counts().items()
+                   if v != before[k]}
+            k = SSM_F32_STEPS * groups
+            want = ({} if not k or name == "reference" else
+                    {"kv_decode_append_attend": k} if name == "multiport"
+                    else {"kv_decode_split_partial": k,
+                          "kv_decode_split_combine": k})
+            if ran != want:
+                raise AssertionError(f"{arch} f32 {name}: launched {ran} != "
+                                     f"{want}")
+            _agree(lg, full[:, SSM_F32_PROMPT - 1], what=f"{arch} prefill "
+                   f"vs forward", **PROMPT_TOL)
+            for t, st in enumerate(steps):
+                _agree(st, full[:, SSM_F32_PROMPT + t], what=f"{arch} {name}"
+                       f" step {t} vs forward", **PROMPT_TOL)
+                if not torch.equal(st.argmax(-1),
+                                   full[:, SSM_F32_PROMPT + t].argmax(-1)):
+                    raise AssertionError(f"{arch} {name}: argmax differs "
+                                         f"from forward at step {t}")
+            runs[name] = steps
+            if name == "multiport" and hybrid:
+                errs["kv_decode_append_attend"] = _decode_agree(
+                    *cap.typical("decode"))
+            elif name == "split 8":
+                pair, comb = _hold_split_pair(*cap.typical("decode"),
+                                              (SSM_SPLITS,))
+                errs["kv_decode_split_partial"] = pair
+                errs["kv_decode_split_combine"] = comb
+            del cap
+        unit = "layer slots" if hybrid else "layers"
+        line = (f"{arch} [f32, published widths, {slots} {unit}, TF32 "
+                f"off]: prefill of {SSM_F32_ROWS} x {SSM_F32_PROMPT} + "
+                f"{SSM_F32_STEPS} decode steps == forward over {n} "
+                f"positions (atol {PROMPT_TOL['atol']}, rtol "
+                f"{PROMPT_TOL['rtol']}, argmax identical)")
+        if hybrid:
+            mode_err = max(_agree(a, b, what=f"{arch} multiport vs "
+                                  f"reference", **HYBRID_MODE_TOL)
+                           for a, b in zip(runs["multiport"],
+                                           runs["reference"]))
+            toks = {}
+            for ns in (1, SSM_SPLITS):
+                _, _, fed, _, _ = _prefill_decode(
+                    M, cfg, params, prompt, SSM_F32_STEPS, SSM_F32_CACHE,
+                    kernel_mode="multiport", num_kv_splits=ns)
+                toks[ns] = fed.tolist()
+            if toks[1] != toks[SSM_SPLITS]:
+                raise AssertionError(f"{arch}: split and serial greedy "
+                                     f"tokens differ: {toks}")
+            line += (f"; multiport == reference (max |diff| {mode_err:.3g} "
+                     f"within {HYBRID_MODE_TOL}, argmax identical); split "
+                     f"ns {SSM_SPLITS} == serial over "
+                     f"{SSM_F32_ROWS * SSM_F32_STEPS} greedy tokens")
+        cpu = {"inputs": ids[:1, :64].cpu()}
+        on_cpu, _ = M.forward(T.tree_map(lambda x: x.cpu(), params), cfg, cpu)
+        on_card, _ = M.forward(params, cfg, {"inputs": ids[:1, :64]})
+        e = _agree(on_card, on_cpu.to(dev), CARD_CPU_RTOL, CARD_CPU_RTOL,
+                   f"{arch} forward card vs CPU")
+        print(f"{line}; forward on the card == on the CPU over 1 x 64 "
+              f"tokens (max |diff| {e:.3g}); {time.perf_counter() - t0:.1f}s")
+        del params, full, runs
+        torch.cuda.empty_cache()
+    if max(errs.values()) > F32_TOL:
+        raise AssertionError(f"a kernel disagrees with its plain version on "
+                             f"the zamba2-7b f32 path: {errs}")
+    return errs
+
+
+def train_ssm_families(card: str) -> None:
+    """rwkv6-3b at 8 of its 32 layers and zamba2-7b at 7 of its 81 layer
+    slots (one group of 6 and its shared block, one tail block), published
+    widths, bf16, seed-0 weights, the chain task at batch 4 x seq 512: 2
+    AdamW steps of each through ``launch.train``'s parse and build, losses
+    finite, no kernel launched."""
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.kernels import reset_launch_counts
+    for arch, slots in SSM_TRAIN_SLOTS.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        args, s = _train_setup(["--arch", arch] + SSM_TRAIN,
+                               lambda c: dataclasses.replace(c,
+                                                             n_layers=slots))
+        state, s.state = s.state, None
+        n = sum(x.numel() for x in T.leaves(state["params"]))
+        recs, times = [], []
+        for i in range(2):
+            batch = s.loader.get(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = s.step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            recs.append(_record(metrics))
+        _expect_no_launches(f"{arch} training")
+        unit = "layer slots" if s.cfg.family == "hybrid" else "layers"
+        print(f"train {arch} [published widths, depth cut to {slots} of "
+              f"{registry.get(arch).n_layers} {unit}, {n / 1e9:.3f} B parameters, "
+              f"{s.cfg.param_dtype}, AdamW, batch {args.batch} x seq "
+              f"{args.seq}]: 2 steps, ce {recs[0]['ce']:.4f} -> "
+              f"{recs[1]['ce']:.4f}, grad_norm {recs[0]['grad_norm']:.4g} / "
+              f"{recs[1]['grad_norm']:.4g}, {times[0]:.3f} / {times[1]:.3f} s "
+              f"a step, peak memory {_gib(torch.cuda.max_memory_allocated())};"
+              f" launch counters all 0 ({card})")
+        del state, s, batch, metrics
+        torch.cuda.empty_cache()
+
+
+def ssm_families(dev, card: str) -> dict:
+    """Phase 7i. Returns the kernels' errors by run."""
+    calls = ssm_full_width("zamba2-7b", dev, card)
+    errs = {"zamba2_bf16": hybrid_rows(calls),
+            "zamba2_call_f32": hybrid_call_f32(calls)}
+    del calls
+    torch.cuda.empty_cache()
+    ssm_full_width("rwkv6-3b", dev, card)
+    errs["zamba2_f32"] = ssm_f32_identities(dev)
+    train_ssm_families(card)
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2199,6 +2727,9 @@ def main() -> int:
         for name, e in by_kernel.items():
             errs[name][what] = e
     family_entry_points(dev)
+    for what, by_kernel in ssm_families(dev, card).items():
+        for name, e in by_kernel.items():
+            errs[name][what] = e
 
     train_full_width(card)
     train_f32_identity(card)

@@ -152,8 +152,7 @@ def arch_config(args: argparse.Namespace):
         raise SystemExit(f"{args.arch} has a stub frontend; serve a token arch")
     if cfg.family not in KV_FAMILIES:
         raise SystemExit(f"{args.arch} is a {cfg.family!r} architecture; the "
-                         f"engine serves KV-cache families (the {cfg.family!r}"
-                         f" model is ROADMAP A9b)")
+                         f"engine serves KV-cache families")
     if args.dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
                                   compute_dtype=args.dtype)

@@ -25,7 +25,7 @@ from repro_torch import device as _device
 from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
-from repro_torch.models import KV_FAMILIES, init_params
+from repro_torch.models import init_params
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.loop import RunnerConfig, TrainingRunner
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
@@ -78,11 +78,8 @@ def ckpt_dir(args: argparse.Namespace) -> str:
 
 
 def arch_config(args: argparse.Namespace):
-    cfg = registry.get(args.arch, reduced=args.reduced)
-    if cfg.family not in KV_FAMILIES:
-        raise SystemExit(f"{args.arch} is a {cfg.family!r} architecture; "
-                         f"its model is ROADMAP A9b")
-    return cfg
+    """Every registered arch trains, as in the JAX launcher."""
+    return registry.get(args.arch, reduced=args.reduced)
 
 
 def train_config(args: argparse.Namespace) -> TrainConfig:

@@ -1,6 +1,7 @@
-"""Decoders of the KV-cache families (dense, moe, vlm, audio): init, the JAX
-parameter bridge, the whole-prompt forward and prefill, decode state,
-decode step and chunked prefill, and the training loss (``model.py``)."""
+"""Decoders of all six families (dense, moe, vlm, audio, ssm, hybrid):
+init, the JAX parameter bridge, the whole-prompt forward and prefill,
+decode state, decode step, chunked prefill (the KV-cache families) and the
+training loss (``model.py``)."""
 from repro_torch.models.model import (KV_FAMILIES, decode_step, forward,
                                       init_decode_state, init_params,
                                       loss_fn, params_from_numpy, prefill,

@@ -1,7 +1,12 @@
-"""Model assembly for the KV-cache families (dense, moe, vlm, audio): init,
-the whole-prompt forward and prefill, decode state, decode step and chunked
-prefill, the training loss, plus the bridge that carries the JAX package's
-parameters across. The ssm and hybrid families come with ROADMAP item A9b.
+"""Model assembly for all six families: init, the whole-prompt forward
+and prefill, decode state, decode step and chunked prefill, the training
+loss, plus the bridge that carries the JAX package's parameters across.
+
+Families: the KV-cache families (dense, moe, vlm, audio) stack one
+transformer block per layer; ``"ssm"`` (rwkv6) stacks RWKV6 blocks;
+``"hybrid"`` (zamba2) runs one SHARED transformer block before every group
+of ``hybrid.group_size`` Mamba2 blocks, then the leftover Mamba2 blocks
+(the tail).
 
 Batch dict convention, as in the JAX package: ``"inputs"`` holds token ids
 [B, S] (``input_mode="tokens"``) or embeddings [B, S, d]
@@ -10,15 +15,21 @@ Batch dict convention, as in the JAX package: ``"inputs"`` holds token ids
 mrope.
 
 Parameters are a nested dict of tensors shaped exactly like the JAX
-package's pytree: block leaves are stacked on a leading [n_layers] axis,
-and the layer loop (``lax.scan`` there) is a Python loop over that axis
-here. ``cache_k[l]`` of a ``[L, B, S, Hkv, D]`` cache is a contiguous view,
-so the fused kernels' in-place update lands in the caller's state; the
-two-pass reference path returns new per-layer caches, which are copied
-back into the same state, so both modes update ``state["cache_k"]`` and
-``state["cache_v"]`` in place.
+package's pytree: block leaves are stacked on leading axes ([n_layers];
+for the hybrid family ``groups`` [g, m, ...] and ``tail`` [tail, ...]),
+and each layer loop (``lax.scan`` there) is a Python loop over those axes
+here. A stacked decode-state tensor indexed at a layer is a contiguous
+view, so the fused kernels' in-place update lands in the caller's state;
+what a layer returns instead (the two-pass reference path's caches, the
+recurrent states) is copied back into the same view, so every entry point
+updates the decode state it is given in place.
 
-Decode state is a dict ``{"len": [B] int32, "cache_k", "cache_v"}``.
+Decode state is a dict with a shared ``"len"`` [B] int32 field and, as in
+the JAX package: ``cache_k``/``cache_v`` [L, B, S, Hkv, D] (KV-cache
+families); ``tm_shift``/``cm_shift`` [L, B, d] and ``tm_state``
+[L, B, H, K, K] f32 (ssm); ``attn_k``/``attn_v`` [g, B, S, Hkv, D],
+``conv`` {x, B, C} [g, m, B, K-1, C], ``ssm`` [g, m, B, H, N, P] f32 and
+``tail_conv``/``tail_ssm`` (hybrid).
 """
 from __future__ import annotations
 
@@ -39,29 +50,43 @@ PyTree = Any
 KV_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in KV_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (the port has "
-            f"{'/'.join(KV_FAMILIES)}; ssm and hybrid come with ROADMAP "
-            f"item A9b)")
+def _hybrid_counts(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(groups, Mamba2 blocks a group, tail blocks) of a hybrid model."""
+    g = cfg.n_layers // cfg.hybrid.group_size
+    m = cfg.hybrid.group_size
+    return g, m, cfg.n_layers - g * m
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> PyTree:
     """Random parameters with the JAX package's shapes and distributions
-    (``models/layers.py`` there): embeddings N(0, 1), linear weights
-    N(0, 1/fan_in), MoE routers N(0, 0.02), norm scales 1; no ``embed``
-    for an embedding-input model. ``generator`` lives on ``device``."""
-    _check_family(cfg)
+    (``models/layers.py``, ``rwkv.py`` and ``ssm.py`` there): embeddings
+    N(0, 1), linear weights N(0, 1/fan_in), MoE routers N(0, 0.02), norm
+    scales 1; no ``embed`` for an embedding-input model. ``generator``
+    lives on ``device``."""
     kw = dict(dtype=cfg.pdtype, device=device)
     p = {}
     if cfg.input_mode == "tokens":
         p["embed"] = L.embedding_init(generator, cfg.vocab, cfg.d_model, **kw)
     p["final_norm"] = L.rmsnorm_init(cfg.d_model, **kw)
     p["lm_head"] = L.linear_init(generator, cfg.d_model, cfg.vocab, **kw)
-    p["layers"] = B.transformer_block_init(generator, cfg, device=device,
-                                           lead=(cfg.n_layers,))
+    if cfg.family in KV_FAMILIES:
+        p["layers"] = B.transformer_block_init(generator, cfg, device=device,
+                                               lead=(cfg.n_layers,))
+    elif cfg.family == "ssm":
+        p["layers"] = B.rwkv_block_init(generator, cfg, device=device,
+                                        lead=(cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        g, m, tail = _hybrid_counts(cfg)
+        p["shared_attn"] = B.transformer_block_init(
+            generator, cfg, d_ff=cfg.hybrid.attn_d_ff, device=device)
+        p["groups"] = B.mamba_block_init(generator, cfg, device=device,
+                                         lead=(g, m))
+        if tail:
+            p["tail"] = B.mamba_block_init(generator, cfg, device=device,
+                                           lead=(tail,))
+    else:
+        raise ValueError(cfg.family)
     return p
 
 
@@ -79,7 +104,6 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 def params_from_numpy(tree: PyTree, cfg: ArchConfig, device="cuda") -> PyTree:
     """The port's parameters from the JAX ``init_params`` pytree converted
     leaf by leaf to numpy (the JAX ``tree.map(np.asarray, params)``)."""
-    _check_family(cfg)
 
     def conv(x):
         if isinstance(x, dict):
@@ -129,29 +153,62 @@ def _default_positions(cfg: ArchConfig, batch: dict, b: int, s: int,
     return base.expand(b, s)
 
 
+def _remat(cfg: ArchConfig, params: PyTree) -> bool:
+    """Recompute each block in the backward (``cfg.remat == "block"``)
+    when a backward will run: grads on and a parameter that wants one."""
+    return (cfg.remat == "block" and torch.is_grad_enabled()
+            and any(x.requires_grad for x in T.leaves(params)))
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed under remat (the JAX package's
+    ``jax.checkpoint`` of the scanned body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _hybrid_group(shared: dict, pg: PyTree, x, positions, cfg: ArchConfig,
+                  m: int):
+    """One group of the hybrid forward: the shared block, then the
+    group's m Mamba2 blocks (the JAX package's ``group_body``)."""
+    x, _ = B.transformer_block_apply(shared, x, positions, cfg)
+    for p in _unbind_layers(pg, m):
+        x = B.mamba_block_apply(p, x, cfg)
+    return x
+
+
 def forward(params: PyTree, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole sequence at once. batch: {"inputs": ids [B, S] or
     embeddings [B, S, d], optional "positions"}. Returns (logits [B, S, V],
     the MoE aux loss summed over layers; 0 without experts).
 
-    Under autograd with ``cfg.remat == "block"`` each block is
-    recomputed in the backward instead of keeping its activations, as the
-    JAX package's ``jax.checkpoint`` of the scanned block."""
-    _check_family(cfg)
+    Under autograd with ``cfg.remat == "block"`` each block (for the
+    hybrid family each group, the shared block with its Mamba2 blocks,
+    and each tail block) is recomputed in the backward instead of keeping
+    its activations, as the JAX package's ``jax.checkpoint`` of the
+    scanned body."""
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
-    positions = _default_positions(cfg, batch, b, s, inputs.device)
     x = _stem(params, cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = (cfg.remat == "block" and torch.is_grad_enabled()
-             and any(x.requires_grad for x in T.leaves(params["layers"])))
+    remat = _remat(cfg, params)
+    if cfg.family == "ssm":
+        for p in _unbind_layers(params["layers"], cfg.n_layers):
+            x = _run(remat, B.rwkv_block_apply, p, x, cfg)
+        return _head(params, cfg, x), aux
+    positions = _default_positions(cfg, batch, b, s, inputs.device)
+    if cfg.family == "hybrid":
+        g, m, tail = _hybrid_counts(cfg)
+        for pg in _unbind_layers(params["groups"], g):
+            x = _run(remat, _hybrid_group, params["shared_attn"], pg, x,
+                     positions, cfg, m)
+        for p in _unbind_layers(params.get("tail", {}), tail):
+            x = _run(remat, B.mamba_block_apply, p, x, cfg)
+        return _head(params, cfg, x), aux
     for p in _unbind_layers(params["layers"], cfg.n_layers):
-        if remat:
-            x, a = checkpoint(B.transformer_block_apply, p, x, positions, cfg,
-                              use_reentrant=False)
-        else:
-            x, a = B.transformer_block_apply(p, x, positions, cfg)
+        x, a = _run(remat, B.transformer_block_apply, p, x, positions, cfg)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -184,40 +241,114 @@ def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict
                   "accuracy": acc, "tokens": count}
 
 
+def _put(state: PyTree, at: tuple, got: PyTree) -> None:
+    """Land a layer's returned state (a tensor or a dict of them) in the
+    stacked state at index ``at`` (a no-op where ``got`` already is that
+    slice, as the fused kernels' caches updated in place are)."""
+    if isinstance(state, dict):
+        for k in state:
+            _put(state[k], at, got[k])
+    elif got.data_ptr() != state[at].data_ptr():
+        state[at].copy_(got)
+
+
+def _mamba_prefill(p: dict, x, cfg: ArchConfig, conv: dict,
+                   ssm: torch.Tensor, at: tuple):
+    """A Mamba2 block over the prompt, its states landed at ``at``. As in
+    the JAX package, the conv state starts from zero and the SSM state is
+    carried in from the state given."""
+    x, cs, ss = B.mamba_block_apply(p, x, cfg, conv_state=None,
+                                    ssm_state=ssm[at], return_state=True)
+    _put(conv, at, cs)
+    _put(ssm, at, ss)
+    return x
+
+
 def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
             ) -> tuple[PyTree, torch.Tensor]:
     """Process a prompt of length S, writing its K,V at [0, S) of the
-    caches of ``state`` in place. Returns (state' with ``len`` + S, logits
-    of the last position [B, V])."""
-    _check_family(cfg)
+    caches of ``state`` and the recurrent states, in place. Returns
+    (state' with ``len`` + S, logits of the last position [B, V])."""
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
-    positions = _default_positions(cfg, batch, b, s, inputs.device)
     x = _stem(params, cfg, inputs)
-    ck, cv = state["cache_k"], state["cache_v"]
-    # each layer writes ck[i], cv[i] in place
-    for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-        x, _, _ = B.transformer_block_prefill(
-            p, x, positions, ck[i], cv[i], cfg)
+    if cfg.family == "ssm":
+        tm_state = state["tm_state"]
+        for i, p in enumerate(_unbind_layers(params["layers"],
+                                             cfg.n_layers)):
+            # as in the JAX package: the shift states start from zero,
+            # the time-mix state is carried in
+            x, st = B.rwkv_block_apply(p, x, cfg,
+                                       states=(None, tm_state[i], None),
+                                       return_state=True)
+            for key, got in zip(("tm_shift", "tm_state", "cm_shift"), st):
+                _put(state[key], (i,), got)
+    elif cfg.family == "hybrid":
+        positions = _default_positions(cfg, batch, b, s, inputs.device)
+        g, m, tail = _hybrid_counts(cfg)
+        ck, cv = state["attn_k"], state["attn_v"]
+        for gi, pg in enumerate(_unbind_layers(params["groups"], g)):
+            x, _, _ = B.transformer_block_prefill(
+                params["shared_attn"], x, positions, ck[gi], cv[gi], cfg)
+            for mi, p in enumerate(_unbind_layers(pg, m)):
+                x = _mamba_prefill(p, x, cfg, state["conv"], state["ssm"],
+                                   (gi, mi))
+        for ti, p in enumerate(_unbind_layers(params.get("tail", {}), tail)):
+            x = _mamba_prefill(p, x, cfg, state["tail_conv"],
+                               state["tail_ssm"], (ti,))
+    else:
+        positions = _default_positions(cfg, batch, b, s, inputs.device)
+        ck, cv = state["cache_k"], state["cache_v"]
+        # each layer writes ck[i], cv[i] in place
+        for i, p in enumerate(_unbind_layers(params["layers"],
+                                             cfg.n_layers)):
+            x, _, _ = B.transformer_block_prefill(
+                p, x, positions, ck[i], cv[i], cfg)
     logits = _head(params, cfg, x[:, -1:])[:, 0]
     return dict(state, len=state["len"] + s), logits
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
                       device="cuda") -> PyTree:
-    _check_family(cfg)
-    kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"len": torch.zeros((batch_size,), dtype=torch.int32,
-                               device=device),
-            "cache_k": torch.zeros(kv, dtype=cfg.cdtype, device=device),
-            "cache_v": torch.zeros(kv, dtype=cfg.cdtype, device=device)}
+    """Zeros in the JAX package's decode-state tree (module docstring):
+    caches and shift states in the compute dtype, recurrent states f32."""
+    cdt, f32 = cfg.cdtype, torch.float32
 
+    def zeros(shape, dtype=cdt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    state = {"len": zeros((batch_size,), torch.int32)}
+    if cfg.family in KV_FAMILIES:
+        kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+              cfg.head_dim_)
+        state["cache_k"], state["cache_v"] = zeros(kv), zeros(kv)
+    elif cfg.family == "ssm":
+        h, k = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        lead = (cfg.n_layers, batch_size)
+        state["tm_shift"] = zeros(lead + (cfg.d_model,))
+        state["tm_state"] = zeros(lead + (h, k, k), f32)
+        state["cm_shift"] = zeros(lead + (cfg.d_model,))
+    elif cfg.family == "hybrid":
+        g, m, tail = _hybrid_counts(cfg)
+        ssm = cfg.ssm
+        d_in = ssm.expand * cfg.d_model
+        nheads = d_in // ssm.head_dim
+        kv = (g, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        state["attn_k"], state["attn_v"] = zeros(kv), zeros(kv)
 
-def _store(cache: torch.Tensor, layer: int, got: torch.Tensor) -> None:
-    """Land a layer's returned cache in the state (a no-op for the fused
-    kernels, which updated ``cache[layer]`` in place)."""
-    if got.data_ptr() != cache[layer].data_ptr():
-        cache[layer].copy_(got)
+        def conv_states(*lead):
+            ck = ssm.conv_kernel - 1
+            return {"x": zeros(lead + (batch_size, ck, d_in)),
+                    "B": zeros(lead + (batch_size, ck, ssm.state_dim)),
+                    "C": zeros(lead + (batch_size, ck, ssm.state_dim))}
+        rec = (batch_size, nheads, ssm.state_dim, ssm.head_dim)
+        state["conv"] = conv_states(g, m)
+        state["ssm"] = zeros((g, m) + rec, f32)
+        if tail:
+            state["tail_conv"] = conv_states(tail)
+            state["tail_ssm"] = zeros((tail,) + rec, f32)
+    else:
+        raise ValueError(cfg.family)
+    return state
 
 
 def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
@@ -226,21 +357,52 @@ def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                 num_kv_splits: int = 1, port_mix: str = "wr"
                 ) -> tuple[PyTree, torch.Tensor]:
     """One new token per sequence. Returns (state', logits [B, V]); the
-    caches of ``state`` are updated in place (see the module docstring).
+    decode state is updated in place (see the module docstring).
 
     ``seq_tile``/``length_mask`` bound the fused kernel's traversal to live
-    cache tiles."""
-    _check_family(cfg)
-    ck, cv, lens = state["cache_k"], state["cache_v"], state["len"]
+    cache tiles. The kernel modes and options reach the attention layers:
+    every layer of a KV-cache family, the hybrid family's shared block
+    once a group; the ssm family has none."""
+    lens = state["len"]
     x = _stem(params, cfg, batch["inputs"], offset=lens)
-    for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-        x, k_i, v_i = B.transformer_block_decode(
-            p, x, ck[i], cv[i], lens, cfg,
-            kernel_mode=kernel_mode, seq_tile=seq_tile,
-            length_mask=length_mask, dynamic_grid=dynamic_grid,
-            num_kv_splits=num_kv_splits, port_mix=port_mix)
-        _store(ck, i, k_i)
-        _store(cv, i, v_i)
+    attn = dict(kernel_mode=kernel_mode, seq_tile=seq_tile,
+                length_mask=length_mask, dynamic_grid=dynamic_grid,
+                num_kv_splits=num_kv_splits, port_mix=port_mix)
+    if cfg.family == "ssm":
+        keys = ("tm_shift", "tm_state", "cm_shift")
+        for i, p in enumerate(_unbind_layers(params["layers"],
+                                             cfg.n_layers)):
+            x, st = B.rwkv_block_decode(p, x, cfg,
+                                        tuple(state[k][i] for k in keys))
+            for key, got in zip(keys, st):
+                _put(state[key], (i,), got)
+    elif cfg.family == "hybrid":
+        g, m, tail = _hybrid_counts(cfg)
+        ck, cv = state["attn_k"], state["attn_v"]
+
+        def mamba(p, x, conv, ssm, at):
+            x, cs, ss = B.mamba_block_decode(
+                p, x, cfg, {k: v[at] for k, v in conv.items()}, ssm[at])
+            _put(conv, at, cs)
+            _put(ssm, at, ss)
+            return x
+        for gi, pg in enumerate(_unbind_layers(params["groups"], g)):
+            x, k_i, v_i = B.transformer_block_decode(
+                params["shared_attn"], x, ck[gi], cv[gi], lens, cfg, **attn)
+            _put(ck, (gi,), k_i)
+            _put(cv, (gi,), v_i)
+            for mi, p in enumerate(_unbind_layers(pg, m)):
+                x = mamba(p, x, state["conv"], state["ssm"], (gi, mi))
+        for ti, p in enumerate(_unbind_layers(params.get("tail", {}), tail)):
+            x = mamba(p, x, state["tail_conv"], state["tail_ssm"], (ti,))
+    else:
+        ck, cv = state["cache_k"], state["cache_v"]
+        for i, p in enumerate(_unbind_layers(params["layers"],
+                                             cfg.n_layers)):
+            x, k_i, v_i = B.transformer_block_decode(p, x, ck[i], cv[i],
+                                                     lens, cfg, **attn)
+            _put(ck, (i,), k_i)
+            _put(cv, (i,), v_i)
     logits = _head(params, cfg, x)[:, 0]
     return dict(state, len=lens + 1), logits
 
@@ -249,7 +411,9 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                   *, kernel_mode: str = "reference", seq_tile: int = 128,
                   dynamic_grid: bool = False, port_mix: str = "wr"
                   ) -> tuple[PyTree, torch.Tensor]:
-    """Process ONE fixed-size prompt chunk for a batch of sequences.
+    """Process ONE fixed-size prompt chunk for a batch of sequences of a
+    KV-cache family (the ssm and hybrid families raise, as in the JAX
+    package).
 
     batch: {"inputs": ids [B, C] or embeddings [B, C, d], "chunk_len": [B]
     valid rows per sequence}.
@@ -258,7 +422,8 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
     [B, V]) with each row's logits taken at its LAST VALID chunk position;
     the caches of ``state`` are updated in place.
     """
-    _check_family(cfg)
+    if cfg.family not in KV_FAMILIES:
+        raise NotImplementedError("chunked prefill serves KV-cache families")
     inputs = batch["inputs"]
     c = inputs.shape[1]
     chunk_len = torch.as_tensor(batch["chunk_len"], dtype=torch.int32,
@@ -271,8 +436,8 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
             p, x, offset, chunk_len, ck[i], cv[i],
             cfg, kernel_mode=kernel_mode, seq_tile=seq_tile,
             dynamic_grid=dynamic_grid, port_mix=port_mix)
-        _store(ck, i, k_i)
-        _store(cv, i, v_i)
+        _put(ck, (i,), k_i)
+        _put(cv, (i,), v_i)
     last = torch.clamp(chunk_len.long() - 1, 0, c - 1)
     xl = x[torch.arange(x.shape[0], device=x.device), last][:, None]
     logits = _head(params, cfg, xl)[:, 0]

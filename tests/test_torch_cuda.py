@@ -934,3 +934,131 @@ def test_quantizer_on_card_matches_cpu(cuda_device, signed):
     np.testing.assert_allclose(d_card.cpu().numpy(),
                                Q._dequantize(q_cpu, x.shape).numpy(),
                                rtol=4e-6, atol=0)
+
+
+# ---- zamba2-7b's shared attention: B1 and the split pair at G 1, D 112 ----
+
+# zamba2-7b's heads: 32 query and 32 kv heads of 112 dims (224-byte bf16
+# rows: 16-byte copies; 112 of a P.V row's threads busy)
+ZAMBA_HKV, ZAMBA_D = 32, 112
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32")])
+@pytest.mark.parametrize("mode", [dict(), dict(length_mask=False),
+                                  dict(dynamic_grid=True)])
+def test_decode_kernel_at_zamba2_heads_on_card(rng, cuda_device, qdt, cdt,
+                                               mode):
+    """B1 at G 1, D 112, Hkv 32: ragged lengths, appends at 0 and at tile
+    edges, a dead row; one launch a call; caches and tile counts identical
+    to the plain version."""
+    s, tile = 256, 64
+    lens = [0, tile - 1, tile, tile + 1, -1, 200, s - 1]
+    b = len(lens)
+    q = _normal(rng, cuda_device, qdt, b, ZAMBA_HKV, ZAMBA_D)
+    ck, cv = (_normal(rng, cuda_device, cdt, b, s, ZAMBA_HKV, ZAMBA_D)
+              for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, cdt, b, ZAMBA_HKV, ZAMBA_D)
+              for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    ck_p, cv_p = ck.clone(), cv.clone()
+    before = launch_counts()
+    o, _, _, t = kvmp.fused_append_attend(q, ck, cv, nk, nv, ln,
+                                          seq_tile=tile, return_tiles=True,
+                                          **mode)
+    ran = {k: v - before[k] for k, v in launch_counts().items()
+           if v != before[k]}
+    assert ran == {"kv_decode_append_attend": 1}
+    _, n = kvmp.launch_geometry(s, tile, None, mode.get("dynamic_grid",
+                                                        False))
+    o_p, t_p = kvmp.fused_append_attend_plain(
+        q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=n,
+        length_mask=mode.get("length_mask", True))
+    tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    assert torch.equal(t, t_p)
+    assert not o[lens.index(-1)].float().abs().any()      # dead row: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [("f32", "f32"), ("bf16", "bf16")])
+@pytest.mark.parametrize("ns", [2, 8])
+def test_split_pair_at_zamba2_heads_on_card(rng, cuda_device, qdt, cdt, ns):
+    """The split pair at G 1, D 112, Hkv 32 over a 2K context (appends on
+    stage and bank boundaries, a dead row): the split launches only,
+    against the plain split version and the serial kernel, caches and tile
+    counts identical to both."""
+    s, tile = 2048, 64
+    lens = [-1, 63, 64, 1023, 1024, 1500, 2047]
+    b = len(lens)
+    q = _normal(rng, cuda_device, qdt, b, ZAMBA_HKV, ZAMBA_D)
+    ck, cv = (_normal(rng, cuda_device, cdt, b, s, ZAMBA_HKV, ZAMBA_D)
+              for _ in "kv")
+    nk, nv = (_normal(rng, cuda_device, cdt, b, ZAMBA_HKV, ZAMBA_D)
+              for _ in "kv")
+    ln = _ints(cuda_device, lens)
+    ck_p, cv_p, ck_1, cv_1 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    before = launch_counts()
+    o, _, _, t = kvmp.fused_append_attend(q, ck, cv, nk, nv, ln,
+                                          seq_tile=tile, num_kv_splits=ns,
+                                          dynamic_grid=True,
+                                          return_tiles=True)
+    ran = {k: v - before[k] for k, v in launch_counts().items()
+           if v != before[k]}
+    assert ran == {"kv_decode_split_partial": 1, "kv_decode_split_combine": 1}
+    o_p, t_p = kvmp.fused_append_attend_split_plain(
+        q, ck_p, cv_p, nk, nv, ln, seq_tile=tile, n_tiles=s // tile,
+        length_mask=True, num_kv_splits=ns)
+    o_1, _, _, t_1 = kvmp.fused_append_attend(q, ck_1, cv_1, nk, nv, ln,
+                                              seq_tile=tile,
+                                              dynamic_grid=True,
+                                              return_tiles=True)
+    tol = F32_TOL if qdt == cdt == "f32" else BF16_TOL
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(o.float(), o_1.float(), atol=tol, rtol=tol)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    assert torch.equal(ck, ck_1) and torch.equal(cv, cv_1)
+    assert torch.equal(t, t_p) and torch.equal(t, t_1)
+    assert not o[lens.index(-1)].float().abs().any()      # dead row: zeros
+
+
+@pytest.mark.cuda
+def test_zamba2_decode_step_on_card_matches_cpu(cuda_device):
+    """zamba2-7b at its published widths, depth cut to 7 layer slots (one
+    group of 6 Mamba2 blocks and its shared block, one tail block), f32
+    with TF32 off: ``prefill`` of 16 tokens and one multiport
+    ``decode_step`` on the card (B1 launched once, for the one group's
+    shared block) against the same on the CPU (the plain version), logits
+    and every decode-state leaf within 1e-4."""
+    import dataclasses
+
+    from repro_torch import models as M
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get("zamba2-7b"), n_layers=7,
+                              param_dtype="float32", compute_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ids = torch.randint(0, cfg.vocab, (2, 17),
+                        generator=torch.Generator().manual_seed(1))
+
+    def run(dev, p):
+        state = M.init_decode_state(cfg, 2, 64, dev)
+        state, _ = M.prefill(p, cfg, state, {"inputs": ids[:, :16].to(dev)})
+        before = launch_counts()
+        state, lg = M.decode_step(p, cfg, state,
+                                  {"inputs": ids[:, 16:].to(dev)},
+                                  kernel_mode="multiport", seq_tile=64)
+        ran = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+        return lg, state, ran
+    lg_cpu, st_cpu, ran_cpu = run("cpu", params)
+    lg, st, ran = run(cuda_device, T.tree_map(
+        lambda x: x.to(cuda_device), params))
+    assert ran_cpu == {} and ran == {"kv_decode_append_attend": 1}
+    torch.testing.assert_close(lg.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    for (path, a), (_, b) in zip(T.leaves_with_path(st),
+                                 T.leaves_with_path(st_cpu), strict=True):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4,
+                                   msg=str(path))

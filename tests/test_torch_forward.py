@@ -145,27 +145,57 @@ def test_prefill_then_decode_matches_forward(bridged, ids, mode):
                                           ("zamba2-7b", True),
                                           ("zamba2-7b", False)])
 def test_non_dense_families_raise_naming_a9(arch, reduced):
-    """The ssm and hybrid families (ROADMAP A9b), published or reduced,
-    are refused by every entry point before any work."""
+    # The name is kept from when these families were refused; the test now
+    # checks that they run.
+    """The ssm and hybrid families (ROADMAP A9b, ported): ``prefill_chunk``
+    raises the JAX package's "chunked prefill serves KV-cache families"
+    before any work, and ``forward``, ``prefill`` and ``decode_step`` run
+    and give logits of the config's vocab, at the published widths too
+    (on the meta device: shapes without memory)."""
     cfg = treg.get(arch, reduced=reduced)
-    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64),
-             "chunk_len": torch.ones((1,), dtype=torch.int32)}
-    for entry in (tm.prefill, tm.decode_step, tm.prefill_chunk):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            entry({}, cfg, {}, batch)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tm.forward({}, cfg, batch)
+    dev = "cpu" if reduced else "meta"
+    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64, device=dev),
+             "chunk_len": torch.ones((1,), dtype=torch.int32, device=dev)}
+    with pytest.raises(NotImplementedError,
+                       match="chunked prefill serves KV-cache families"):
+        tm.prefill_chunk({}, cfg, {}, batch)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    logits, aux = tm.forward(params, cfg, batch)
+    assert tuple(logits.shape) == (1, 4, cfg.vocab) and aux.shape == ()
+    state = tm.init_decode_state(cfg, 1, 8, dev)
+    state, lg = tm.prefill(params, cfg, state, batch)
+    state, lg2 = tm.decode_step(params, cfg, state,
+                                {"inputs": batch["inputs"][:, :1]})
+    assert tuple(lg.shape) == tuple(lg2.shape) == (1, cfg.vocab)
+    if reduced:
+        assert state["len"].tolist() == [5]
+        assert bool(torch.isfinite(lg2).all())
 
 
-def test_mrope_positions_raise_naming_a9(bridged):
-    """M-RoPE positions are ported (``test_torch_families.py``); on a
-    family that is not (hybrid, A9b) the refusal comes before them."""
-    _, cfg_t, _, params_t = bridged
-    cfg = dataclasses.replace(treg.get("zamba2-7b", reduced=True),
-                              pos_embed="mrope")
-    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tm.forward(params_t, cfg, batch)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tm.prefill(params_t, cfg, tm.init_decode_state(cfg_t, 1, 8, "cpu"),
-                   batch)
+def test_mrope_positions_raise_naming_a9():
+    # The name is kept from when this call was refused; the test now checks
+    # that it matches JAX.
+    """The hybrid family's ``forward`` with explicit M-RoPE (t, h, w)
+    positions matches the JAX package's (the shared block rotates by
+    them; M-RoPE itself is held in ``test_torch_families.py``)."""
+    cfg_j, cfg_t = (dataclasses.replace(reg.get("zamba2-7b", reduced=True),
+                                        pos_embed="mrope",
+                                        mrope_sections=(4, 2, 2))
+                    for reg in (jreg, treg))
+    params_j = jm.init_params(jax.random.PRNGKey(3), cfg_j)
+    params_t = tm.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                    cfg_t, "cpu")
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, cfg_j.vocab, (2, 16)).astype(np.int32)
+    h, w = np.divmod(np.arange(16), 4)
+    pos = np.broadcast_to(np.stack([np.arange(16), h, w], -1),
+                          (2, 16, 3)).astype(np.int32)
+    lj, _ = jm.forward(params_j, cfg_j, {"inputs": jnp.asarray(ids),
+                                         "positions": jnp.asarray(pos)})
+    lt, _ = tm.forward(params_t, cfg_t, {
+        "inputs": torch.from_numpy(ids),
+        "positions": torch.from_numpy(np.ascontiguousarray(pos))})
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=TOL,
+                               rtol=TOL)
+    plain, _ = tm.forward(params_t, cfg_t, {"inputs": torch.from_numpy(ids)})
+    assert not torch.equal(plain, lt)

@@ -75,10 +75,13 @@ def test_launcher_serves_the_moe_family(arch, family):
 
 @pytest.mark.parametrize("arch,match", [
     ("qwen2-vl-7b", "stub frontend"), ("musicgen-large", "stub frontend"),
-    ("rwkv6-3b", "A9b"), ("zamba2-7b", "A9b")])
+    ("rwkv6-3b", "engine serves KV-cache families"),
+    ("zamba2-7b", "engine serves KV-cache families")])
 def test_launcher_refuses_what_the_engine_cannot_serve(arch, match):
     """Embedding-input stubs, as the JAX launcher refuses them, and the
-    families without a KV cache; before any parameter is drawn."""
+    families without a KV cache, as the engine refuses them (its
+    ValueError: "engine currently serves KV-cache families"); before any
+    parameter is drawn."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match=match):
         serve.arch_config(serve.parse_args(["--arch", arch]))

@@ -14,6 +14,7 @@ import torch
 from repro import models as jm
 from repro.configs import registry as jreg
 from repro_torch import models as tm
+from repro_torch import tree as T
 from repro_torch.configs import registry as treg
 
 TOL = 1e-4
@@ -130,11 +131,25 @@ def test_prefill_chunk_matches_jax(bridged, rng, mode):
 
 
 def test_non_dense_families_raise():
-    """The families without a KV cache wait for ROADMAP A9b; MoE, VLM and
-    audio are ported (``test_torch_families.py``)."""
+    """The families without a KV cache (ROADMAP A9b, ported): the own
+    ``init_params`` and ``init_decode_state`` of reduced rwkv6-3b and
+    zamba2-7b give the JAX package's trees, key for key, in shapes and
+    dtypes. (The published configs: ``test_torch_ssm.py``.)"""
     for arch in ("rwkv6-3b", "zamba2-7b"):
-        cfg = treg.get(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="A9b"):
-            tm.init_params(cfg, torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match="A9b"):
-            tm.init_decode_state(cfg, 1, 8, "cpu")
+        cfg_j, cfg = jreg.get(arch, reduced=True), treg.get(arch, reduced=True)
+        trees = {"params": (jm.init_params(jax.random.PRNGKey(0), cfg_j),
+                            tm.init_params(cfg, torch.Generator(), "cpu")),
+                 "state": (jm.init_decode_state(cfg_j, 2, 8),
+                           tm.init_decode_state(cfg, 2, 8, "cpu"))}
+        for what, (tj, tt) in trees.items():
+            flat = jax.tree_util.tree_flatten_with_path(tj)[0]
+            n = 0
+            for path, leaf in flat:
+                got = tt
+                for k in path:
+                    got = got[k.key]
+                assert tuple(got.shape) == tuple(leaf.shape), (arch, path)
+                assert str(got.dtype).split(".")[-1] == str(leaf.dtype), \
+                    (arch, path)
+                n += 1
+            assert n == len(T.leaves(tt)), (arch, what)
