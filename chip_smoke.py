@@ -110,6 +110,32 @@ Phases (any failure exits non-zero before the final line):
    ns 8 == serial greedy tokens, card == CPU on one forward (1e-4). Then
    2 AdamW steps of each through ``launch.train`` (rwkv6-3b at 8 of 32
    layers, zamba2-7b at 7 of 81 slots), losses finite, no launch;
+7j. the paper's comparison designs (``core/baselines.py``) on the long
+   path's pool geometry (8192 words of 11264 f32): every enable x role mix
+   of 4 ports at Q = 8192 lanes a port, addresses that hit the same words
+   in every hazard order, under seeded priorities: SinglePortNPass,
+   ReplicatedReads(3) and XorCoded equal ``multiport.step`` and the pool
+   step kernel bit for bit (XorCoded: its banks flattened; its parity the
+   sum of its banks within 1e-5); the tensor priority encoder, FSM
+   transition and walk order over 15 masks x 24 permutations, captured in
+   one CUDA graph, equal their static counterparts; the 1W+3R mix timed
+   four ways (B3 as one traversal of 4 ports, B3 as 4 single-port
+   traversals, SinglePortNPass and ReplicatedReads(3) as ported) beside
+   the bytes each moves, the bound, the traffic counters and the
+   footprint ratios next to the paper's 4x bandwidth and 1.3x / 2x area;
+7k. data-parallel KV: tinyllama-1.1b at full width served by a
+   ``MultiPortEngine`` built directly over
+   ``make_kv_mesh(4, devices=[cuda:0] * 4)`` (4 virtual shards of the
+   card: 4 storage shards, each kernel launched once per shard on its row
+   block), with the launcher's settings and requests, on the short closed
+   loop and on the long trace at ``--num-kv-splits 8``: B1 (or B4a and
+   B4b) = 22 x decode cycles x 4, B2 = 22 x prefill cycles x 4, B3 =
+   traversals x 4; per-device steady tile reads sum to the total and
+   balance >= 1; on each path a shard's own calls of B1 (or the split
+   pair), B2 and B3 held against their plain versions and timed beside
+   the unsharded calls of this run;
+   in f32 (TF32 off) the 4-shard greedy tokens equal phase 6's 1-shard
+   tokens;
 8. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -681,49 +707,89 @@ class MainPathCapture:
                    key=lambda call: size(*call))
 
 
-def serve_path(argv: list) -> tuple:
-    """Drive one serving path through the launcher with every launch count
-    set to 0 just before it and read just after it. Returns (engine,
-    chaos harness or None, launch counts, the captured kernel calls)."""
+def _drive(serve_fn) -> tuple:
+    """Run ``serve_fn()`` with every launch count set to 0 just before it
+    and read just after it, capturing the kernel calls it makes. Returns
+    (its result, launch counts, the captured kernel calls)."""
     from repro_torch.kernels import kv_multiport as kvmp
     from repro_torch.kernels import kv_prefill_chunk as kvpc
     from repro_torch.kernels import launch_counts, multiport_sram as mps
     from repro_torch.kernels import reset_launch_counts
-    from repro_torch.launch import serve
     cap = MainPathCapture()
     cap.hook(kvmp, "fused_append_attend", "decode")
     cap.hook(kvpc, "fused_chunk_append_attend", "chunk")
     cap.hook(mps, "multiport_sram_step", "pool")
     try:
         reset_launch_counts()
-        eng, harness = serve.run(serve.parse_args(argv))
+        got = serve_fn()
         torch.cuda.synchronize()
         counts = launch_counts()
     finally:
         cap.restore()
+    return got, counts, cap
+
+
+def serve_path(argv: list) -> tuple:
+    """Drive one serving path through the launcher. Returns (engine, chaos
+    harness or None, launch counts, the captured kernel calls)."""
+    from repro_torch.launch import serve
+    (eng, harness), counts, cap = _drive(
+        lambda: serve.run(serve.parse_args(argv)))
     return eng, harness, counts, cap
+
+
+def serve_mesh(argv: list, mesh) -> tuple:
+    """Build ``MultiPortEngine`` over ``mesh`` directly, with the launcher's
+    settings for ``argv``, and serve the launcher's requests for them (its
+    closed-loop prompts, or the trace) through ``_drive``. Returns (engine,
+    launch counts, the captured kernel calls)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    from repro_torch.serve import traffic
+    from repro_torch.serve.engine import MultiPortEngine
+    args = serve.parse_args(argv)
+    cfg = serve.arch_config(args)
+    dev = torch.device("cuda")
+
+    def run():
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        eng = MultiPortEngine(params, cfg, mesh=mesh, device=dev,
+                              **serve.engine_kwargs(args))
+        if args.trace:
+            traffic.drive(eng, traffic.trace_arrivals(
+                args.trace, vocab=cfg.vocab, seed=args.seed))
+        else:
+            for prompt in serve.closed_loop_prompts(args, cfg.vocab):
+                eng.submit(prompt, max_new=args.max_new)
+            eng.run()
+        return eng
+    return _drive(run)
 
 
 def expect_launches(eng, counts: dict) -> None:
     """The path went through its kernels: one decode launch (the serial
     kernel, or the split pair) per layer per decode cycle, one chunk
-    launch per layer per prefill cycle, one pool step per traversal."""
-    L = eng.cfg.n_layers
-    dec = L * eng.decode_steps
+    launch per layer per prefill cycle, one pool step per traversal; each
+    once per kv shard (every shard launches on its own rows, dead padding
+    rows included, and services every traversal on its own storage)."""
+    L, n = eng.cfg.n_layers, eng.n_kv_shards
+    dec = L * eng.decode_steps * n
     split = eng.num_kv_splits > 1
     want = {"kv_decode_append_attend": 0 if split else dec,
             "kv_decode_split_partial": dec if split else 0,
             "kv_decode_split_combine": dec if split else 0,
-            "kv_chunk_append_attend": L * eng.prefill_steps,
-            "multiport_sram_step": eng.pool.traversals,
+            "kv_chunk_append_attend": L * eng.prefill_steps * n,
+            "multiport_sram_step": eng.pool.traversals * n,
             "flash_attention": 0, "flash_attention_tc": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if not (dec and eng.prefill_steps and eng.pool.traversals):
         raise AssertionError(f"a kernel of the path never ran: {counts}")
+    shards = f" x {n} kv shards" if n > 1 else ""
     print(f"serve: launch counters {counts} match {L} x {eng.decode_steps} "
           f"decode cycles, {L} x {eng.prefill_steps} prefill cycles, "
-          f"{eng.pool.traversals} pool traversals")
+          f"{eng.pool.traversals} pool traversals{shards}")
 
 
 def expect_served(eng, n: int, max_new: int) -> None:
@@ -733,7 +799,9 @@ def expect_served(eng, n: int, max_new: int) -> None:
                                      for t in r.generated) for r in done):
         raise AssertionError(f"serve run did not produce {n} x {max_new} "
                              f"valid tokens")
-    if eng.pool.utilization != 0.0 or float(eng.pool.storage.abs().max()):
+    shards = eng.pool.storage if eng.pool.sharded else (eng.pool.storage,)
+    if eng.pool.utilization != 0.0 or any(float(s.abs().max())
+                                          for s in shards):
         raise AssertionError("pool not drained and scrubbed after the run")
 
 
@@ -775,12 +843,14 @@ LONG_TRACE = ROOT / "build" / "chip_smoke" / "long_2k.jsonl"
 
 
 def serve_long_context() -> tuple:
+    """Returns (launch counts, captured calls, greedy tokens, the pool's
+    MemorySpec)."""
     write_long_trace(LONG_TRACE, 1500, 2001, seed=0)
     eng, _, counts, cap = serve_path(FULL + LONG + [
         "--num-kv-splits", "8", "--trace", str(LONG_TRACE)])
     expect_launches(eng, counts)
     expect_served(eng, 4, 8)
-    return counts, cap, _tokens(eng)
+    return counts, cap, _tokens(eng), eng.pool.spec
 
 
 def serve_long_serial(split_tokens: dict) -> tuple:
@@ -1340,9 +1410,9 @@ def head_dim_128(dev) -> tuple:
 F32 = FULL + ["--dtype", "float32"]
 
 
-def fused_equals_reference() -> None:
+def fused_equals_reference() -> dict:
     """The short path's requests in f32: fused kernels == two-pass
-    reference."""
+    reference. Returns the greedy tokens."""
     from repro_torch.launch import serve
     toks = {}
     for mode in ("pallas", "reference"):
@@ -1357,6 +1427,7 @@ def fused_equals_reference() -> None:
         raise AssertionError(f"fused and reference tokens differ: {toks}")
     print(f"f32 token identity fused == reference over "
           f"{sum(map(len, toks['pallas'].values()))} greedy tokens")
+    return toks["pallas"]
 
 
 def split_equals_serial() -> None:
@@ -1785,6 +1856,10 @@ TRAIN_ARCH = ["--arch", "tinyllama-1.1b", "--device", "cuda"]
 TRAIN = TRAIN_ARCH + ["--batch", "8", "--seq", "1024"]
 TRAIN_STEPS = 8                 # AdamW steps at full width
 OTHER_OPT_STEPS = 2             # adamw8bit and adafactor each
+# the AdamW step before attention took bf16 operands into f32 sums
+# (PERF.md §5, NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE_BF16_PRODUCTS = ("0.869 s a step, copy_ 31.7 % and bmm 17.2 % of "
+                        "its kernels' time")
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 4, 256
 MICRO_TOL = 1e-5                # microbatches == one batch (ce rel; grads
                                 # of each leaf's largest |value|)
@@ -1852,7 +1927,8 @@ def _profile_step(step, state, batch, card: str) -> None:
     print(f"train profile [one AdamW step under torch.profiler, "
           f"{wall_ms:.1f} ms host clock]: kernels {busy:.1f} ms on the "
           f"device ({100 * busy / wall_ms:.1f} % busy); operators by their "
-          f"kernels' device time ({card}):")
+          f"kernels' device time (before attention's bf16 products: "
+          f"{BEFORE_BF16_PRODUCTS}) ({card}):")
     for ms, n, name in prof["ops"][:12]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name}")
 
@@ -1919,7 +1995,9 @@ def train_full_width(card: str) -> None:
                   f"% of the 989 TFLOP/s bf16 peak; peak memory "
                   f"{_gib(peak)} (params {_gib(p_bytes)}, AdamW state "
                   f"{_gib(opt_bytes)}); ce {recs[0]['ce']:.4f} -> "
-                  f"{recs[-1]['ce']:.4f}; launch counters all 0 ({card})")
+                  f"{recs[-1]['ce']:.4f}; launch counters all 0 (before "
+                  f"attention's bf16 products: {BEFORE_BF16_PRODUCTS}) "
+                  f"({card})")
         else:
             print(f"train [{cfg.arch_id}, published widths, "
                   f"{cfg.param_dtype}, {opt}]: {steps} steps finite, "
@@ -2576,6 +2654,331 @@ def ssm_families(dev, card: str) -> dict:
     return errs
 
 
+# ---- phase 7j: the paper's comparison designs (ROADMAP A2) ---------------
+
+BASE_Q = 8192                   # lanes a port, as the long path's gathers
+PAPER = "the paper: 4x bandwidth; 1.3x / 2x area against 8T dual-port / " \
+        "12T quad-port"
+
+
+def _port_mixes(rng) -> list:
+    """Every 1-4-port enable set x R/W role mix (80), each under a seeded
+    priority permutation."""
+    import itertools
+
+    from repro_torch.core import READ, WRITE, PortConfig
+    perms = list(itertools.permutations(range(4)))
+    out = []
+    for m in range(1, 16):
+        enabled = tuple(bool(m >> i & 1) for i in range(4))
+        on = [i for i in range(4) if enabled[i]]
+        for bits in range(1 << len(on)):
+            roles = [READ] * 4
+            for k, p in enumerate(on):
+                roles[p] = WRITE if bits >> k & 1 else READ
+            out.append(PortConfig(enabled=enabled, roles=tuple(roles),
+                                  priority=perms[int(rng.integers(24))]))
+    return out
+
+
+def _hazard_requests(spec, gen, dev) -> list:
+    """4 port bundles of BASE_Q lanes: port 0's addresses at random, and
+    the first half of every other port's on port 0's words, so any two
+    ports of a mix meet on the same words in their service order; about
+    70 % of the lanes on."""
+    from repro_torch.core import PortRequest
+    addr = torch.randint(0, spec.num_words, (4, BASE_Q), generator=gen,
+                         device=dev, dtype=torch.int32)
+    addr[1:, :BASE_Q // 2] = addr[0, :BASE_Q // 2]
+    mask = torch.rand((4, BASE_Q), generator=gen, device=dev) < 0.7
+    return [PortRequest(addr=addr[p], mask=mask[p], data=torch.randn(
+        (BASE_Q, spec.word_width), generator=gen, device=dev))
+        for p in range(4)]
+
+
+def _encoder_graph(dev) -> int:
+    """encode_dynamic (FSM reset), next_port_dynamic (4 transitions) and
+    walk_order_dynamic on CUDA tensors for every mask and permutation,
+    captured in ONE CUDA graph (capture fails on any host sync), replayed
+    and held against the static encoder and walk. Returns the cases."""
+    import itertools
+
+    from repro_torch.core import fsm, priority as prio
+    perms = list(itertools.permutations(range(4)))
+    masks = [tuple(bool(m >> i & 1) for i in range(4)) for m in range(1, 16)]
+    en = torch.tensor(masks, device=dev)
+    pr = torch.tensor(perms, dtype=torch.int32, device=dev)
+
+    def run():
+        rows = []
+        for i in range(len(masks)):
+            for j in range(len(perms)):
+                cur = fsm.reset_state(en[i], pr[j])
+                walk = [cur]
+                for _ in range(4):
+                    cur = fsm.transition(cur, en[i], pr[j])
+                    walk.append(cur)
+                ports, active = fsm.walk_order_dynamic(en[i], pr[j])
+                rows.append(torch.cat([torch.stack(walk), ports,
+                                       active.to(torch.int32)]))
+        return torch.stack(rows)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    graph.replay()
+    got = got.cpu().tolist()
+    for i, enabled in enumerate(masks):
+        for j, priority in enumerate(perms):
+            row = got[i * len(perms) + j]
+            order = prio.order_static(enabled, priority)
+            n = len(order)
+            idle = [p for p in priority if not enabled[p]]
+            want = ([order[k % n] for k in range(5)] + list(order) + idle
+                    + [1] * n + [0] * (4 - n))
+            if row != want or row[0] != prio.encode_static(enabled,
+                                                           priority):
+                raise AssertionError(f"tensor encoder/walk {row} != static "
+                                     f"{want} for {enabled}, {priority}")
+    return len(masks) * len(perms)
+
+
+def _single_port_calls(args, kw) -> list:
+    """B3's packed call of a mix split into one call per port: the
+    N-pass schedule through the kernel."""
+    from repro_torch.core.ports import WRITE
+    storage, addr, payloads, mask = args
+    roles, calls, w = kw["roles"], [], 0
+    for i, r in enumerate(roles):
+        pay = [payloads[w]] if r == WRITE else []
+        w += r == WRITE
+        calls.append(((storage, addr[i:i + 1], pay, mask[i:i + 1]),
+                      dict(roles=(r,))))
+    return calls
+
+
+def paper_comparison(spec, dev, card: str) -> None:
+    """Phase 7j."""
+    import numpy as np
+
+    from repro_torch.core import READ, WRITE, PortConfig, step
+    from repro_torch.core.baselines import (ReplicatedReads, SinglePortNPass,
+                                            XorCoded, footprint_ratio)
+    from repro_torch.kernels import multiport_sram as mps
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    storage = torch.randn((spec.num_words, spec.word_width), generator=gen,
+                          device=dev)
+    single, rep, xor = (SinglePortNPass(spec), ReplicatedReads(spec, 3),
+                        XorCoded(spec))
+    replicas = storage.unsqueeze(0).repeat(3, 1, 1)
+    banks = storage.reshape(spec.num_banks, spec.words_per_bank, -1).clone()
+    parity = banks.sum(0)
+    mixes = _port_mixes(np.random.default_rng(7))
+    parity_err = 0.0
+    for cfg in mixes:
+        reqs = _hazard_requests(spec, gen, dev)
+        want, want_r = step(spec, cfg, storage, reqs)
+        got = {"kernel": ops.multiport_step(spec, cfg, storage.clone(), reqs),
+               "SinglePortNPass": single.step(cfg, storage, reqs)}
+        r_st, r_reads = rep.step(cfg, replicas, reqs)
+        (x_d, x_p), x_reads = xor.step(cfg, (banks, parity), reqs)
+        if not all(torch.equal(r, want) for r in r_st):
+            raise AssertionError(f"ReplicatedReads storage != step, {cfg}")
+        if not torch.equal(x_d.reshape(want.shape), want):
+            raise AssertionError(f"XorCoded data != step, {cfg}")
+        parity_err = max(parity_err, _agree(x_p, x_d.sum(0), 1e-5, 1e-5,
+                                            f"XorCoded parity, {cfg}"))
+        got["ReplicatedReads"] = (want, r_reads)
+        got["XorCoded"] = (want, x_reads)
+        for name, (st, reads) in got.items():
+            if not torch.equal(st, want):
+                raise AssertionError(f"{name} storage != step, {cfg}")
+            for p in range(4):
+                if not torch.equal(reads[p], want_r[p]):
+                    raise AssertionError(f"{name} port {p} reads != step, "
+                                         f"{cfg}")
+        del want, want_r, got, r_st, r_reads, x_d, x_p, x_reads, reqs
+    torch.cuda.synchronize()
+    print(f"paper comparison [{spec.num_words} words x {spec.word_width} "
+          f"{spec.dtype}, {spec.num_banks} banks, Q {BASE_Q} a port]: "
+          f"{len(mixes)} enable x role mixes under seeded priorities, "
+          f"SinglePortNPass, ReplicatedReads(3), XorCoded and the pool-step "
+          f"kernel == multiport.step bit for bit (storage and every read); "
+          f"XorCoded parity == the sum of its banks within "
+          f"{parity_err:.3g} (limit 1e-5); "
+          f"{time.perf_counter() - t0:.1f} s")
+    cases = _encoder_graph(dev)
+    print(f"paper comparison: encode_dynamic, next_port_dynamic and "
+          f"walk_order_dynamic over {cases} mask x priority cases captured "
+          f"in one CUDA graph (no host sync) == encode_static / "
+          f"order_static")
+
+    # the 1W+3R macro-cycle, four ways
+    cfg = PortConfig(enabled=(True,) * 4, roles=(WRITE, READ, READ, READ))
+    reqs = _hazard_requests(spec, gen, dev)
+    cap = MainPathCapture()
+    cap.hook(mps, "multiport_sram_step", "pool")
+    try:
+        ops.multiport_step(spec, cfg, storage.clone(), reqs)
+    finally:
+        cap.restore()
+    args, kw = cap.typical("pool")
+    st = args[0]
+    singles = _single_port_calls(args, kw)
+    one_ms = _ms(lambda: mps.multiport_sram_step(*args, **kw))
+    four_ms = _ms(lambda: [mps.multiport_sram_step(*a, **k)
+                           for a, k in singles])
+    lanes, terms = _pool_bytes(args, kw)
+    lanes4 = sum(_pool_bytes(a, k)[0] for a, k in singles)
+    bound, by = _bound_ms(lanes, 0.0)
+    row = st.shape[1] * st.element_size()
+    copy = 2 * spec.num_words * row              # a storage read + written
+    on_w = int(args[3][0].sum())
+    single_ms = _ms(lambda: single.step(cfg, storage, reqs))
+    rep_ms = _ms(lambda: rep.step(cfg, replicas, reqs))
+    q = BASE_Q
+    lines = [
+        ("B3, one traversal of 4 ports", one_ms, lanes),
+        ("B3, 4 single-port traversals", four_ms, lanes4),
+        ("SinglePortNPass.step (storage copied, then 4 passes)", single_ms,
+         copy + lanes),
+        ("ReplicatedReads(3).step (3 replicas copied; the write lands in "
+         "each)", rep_ms, 3 * copy + lanes + 2 * on_w * row)]
+    print(f"paper comparison, the 1W+3R mix [{terms}] ({card}):")
+    for what, ms, nbytes in lines:
+        print(f"  {what}: {ms:.5f} ms, {nbytes} B moved "
+              f"({nbytes / ms / 1e6:.1f} GB/s); bound of the mix "
+              f"{bound:.6f} ms ({by})")
+    for base in (single, rep, xor):
+        c = base.counters(cfg, q)
+        print(f"  {type(base).__name__}: {c}; footprint ratio "
+              f"{footprint_ratio(c, spec.num_words):.4g}x the proposed "
+              f"pool's")
+    print(f"  traversal ratio N-pass / one traversal "
+          f"{single.counters(cfg, q).storage_traversals}x, bytes ratio "
+          f"{lanes4 / lanes:.4g}x, time ratio {four_ms / one_ms:.3f}x "
+          f"({PAPER})")
+
+
+# ---- phase 7k: data-parallel KV over a kv mesh (ROADMAP A8) --------------
+
+KV_SHARDS = 4
+
+
+def _virtual_mesh(dev):
+    from repro_torch.launch.mesh import make_kv_mesh
+    return make_kv_mesh(KV_SHARDS, devices=[dev] * KV_SHARDS)
+
+
+def _expect_by_dev(eng) -> None:
+    per = eng.steady_decode_tile_reads_by_dev
+    if sum(per) != eng.steady_decode_tile_reads or eng.kv_tile_balance < 1:
+        raise AssertionError(f"per-device steady tile reads {per} do not "
+                             f"sum to {eng.steady_decode_tile_reads} or "
+                             f"balance {eng.kv_tile_balance} < 1")
+    print(f"kv mesh: {eng.n_kv_shards} shards, steady decode tile reads by "
+          f"device {per} (sum {sum(per)} == {eng.steady_decode_tile_reads}), "
+          f"prefill {eng.prefill_tile_reads_by_dev}, balance "
+          f"{eng.kv_tile_balance:.3f}x ideal; pool tiles r/w by shard "
+          f"{eng.pool.tile_reads_by_shard}/{eng.pool.tile_writes_by_shard}")
+
+
+def _print_row(what: str, row: dict, calls: int, beside: dict) -> None:
+    print(f"kernel {what}, one shard's call on the kv-mesh path "
+          f"(x{calls} launches on that path) [{row['shape']}]: max_abs_err "
+          f"{row['max_abs_err']:.3g}, kernel {row['ms']:.5f} ms (the "
+          f"unsharded call of this run {beside['ms']:.5f} ms), plain "
+          f"{row['plain_ms']:.5f} ms, {row['library']} "
+          f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})")
+
+
+def _mesh_chunk(cap, beside: dict, calls: int) -> dict:
+    """B2 on one shard's typical chunk call of a kv-mesh path, held
+    against its plain version (the decode kernel's limits: 1e-5 in f32,
+    4e-2 for bf16 queries) and printed beside the unsharded call."""
+    row = time_chunk(*cap.typical("chunk"))
+    q, ck = cap.typical("chunk")[0][:2]
+    tol = F32_TOL if q.dtype == ck.dtype == torch.float32 else BF16_TOL
+    if row["max_abs_err"] > tol:
+        raise AssertionError(f"chunk kernel on a kv-mesh call "
+                             f"[{row['shape']}]: max |diff| "
+                             f"{row['max_abs_err']:.3g} beyond {tol}")
+    _print_row("kv_chunk_append_attend", row, calls, beside)
+    return row
+
+
+def kv_mesh_paths(dev, unsharded: dict, f32_tokens: dict) -> dict:
+    """Phase 7k. ``unsharded`` holds this run's rows of the unsharded
+    calls; ``f32_tokens`` phase 6's 1-shard f32 greedy tokens. Each path
+    builds the engine over the mesh directly. Returns the launch counts of
+    the two paths and the kernels' errors."""
+    mesh = _virtual_mesh(dev)
+    paths, errs = {}, {}
+    t0 = time.perf_counter()
+    eng, counts, cap = serve_mesh(FULL + SHORT, mesh)
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    _expect_by_dev(eng)
+    print(f"kv mesh short path: {time.perf_counter() - t0:.2f} s host clock")
+    paths["kv mesh short"] = counts
+    b1 = time_decode(*cap.typical("decode"))
+    b3 = time_pool(*cap.typical("pool"))
+    errs["kv_decode_append_attend"] = b1["max_abs_err"]
+    errs["multiport_sram_step"] = b3["max_abs_err"]
+    _print_row("kv_decode_append_attend", b1,
+               counts["kv_decode_append_attend"],
+               unsharded["kv_decode_append_attend"])
+    errs["kv_chunk_append_attend"] = _mesh_chunk(
+        cap, unsharded["chunk short"],
+        counts["kv_chunk_append_attend"])["max_abs_err"]
+    _print_row("multiport_sram_step", b3, counts["multiport_sram_step"],
+               unsharded["multiport_sram_step"])
+    del eng, cap
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng, counts, cap = serve_mesh(FULL + LONG + [
+        "--num-kv-splits", "8", "--trace", str(LONG_TRACE)], mesh)
+    expect_launches(eng, counts)
+    expect_served(eng, 4, 8)
+    _expect_by_dev(eng)
+    print(f"kv mesh long path at --num-kv-splits 8: "
+          f"{time.perf_counter() - t0:.2f} s host clock")
+    paths["kv mesh long ns 8"] = counts
+    pair = time_decode(*cap.typical("decode"))
+    gather = time_pool(*cap.largest("pool", _read_lanes_on))
+    errs["kv_decode_split_partial"] = pair["max_abs_err"]
+    _print_row("kv_decode_split_partial + kv_decode_split_combine (the "
+               "pair at ns 8)", pair, counts["kv_decode_split_partial"],
+               unsharded["split pair"])
+    chunk = _mesh_chunk(cap, unsharded["chunk long"],
+                        counts["kv_chunk_append_attend"])
+    errs["kv_chunk_append_attend"] = max(errs["kv_chunk_append_attend"],
+                                         chunk["max_abs_err"])
+    _print_row("multiport_sram_step (largest decode gather)", gather,
+               counts["multiport_sram_step"], unsharded["gather"])
+    del eng, cap
+    torch.cuda.empty_cache()
+
+    eng, counts, _ = serve_mesh(F32 + SHORT, mesh)
+    expect_launches(eng, counts)
+    toks = _tokens(eng)
+    if toks != f32_tokens:
+        raise AssertionError(f"f32 tokens at {KV_SHARDS} kv shards differ "
+                             f"from 1 shard: {toks} != {f32_tokens}")
+    print(f"kv mesh f32 (TF32 off): greedy tokens at {KV_SHARDS} shards == "
+          f"1 shard over {sum(map(len, toks.values()))} tokens")
+    return paths, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2620,7 +3023,9 @@ def main() -> int:
         print(f"check {name}: agrees with its plain version {e}")
 
     found = {}      # kernel name -> (timing row, launches on its path)
+    paths = {}      # path -> its launch counts
     counts, cap = serve_full_width()
+    paths["short"] = counts
     for name, timer, call in (("kv_decode_append_attend", time_decode,
                                "decode"),
                               ("kv_chunk_append_attend", time_chunk, "chunk"),
@@ -2629,8 +3034,10 @@ def main() -> int:
     cap.calls.clear()
     _print_pool("the short path's typical call", found["multiport_sram_step"][0],
                 counts["multiport_sram_step"], PREVIOUS_MS["pool short"])
-    counts, cap, split_tokens = serve_long_context()
+    counts, cap, split_tokens, long_spec = serve_long_context()
+    paths["long ns 8"] = counts
     partial, combine, sweep = time_long_decode(*cap.typical("decode"))
+    long_pair = time_decode(*cap.typical("decode"))
     long_chunk = time_chunk(*cap.typical("chunk"))
     # the pool's largest call, and its largest decode gather
     long_pool = time_pool(*cap.largest("pool", _lanes_on))
@@ -2654,6 +3061,7 @@ def main() -> int:
                                         counts["kv_decode_split_combine"])
 
     counts, cap = serve_long_serial(split_tokens)
+    paths["long ns 1"] = counts
     call = cap.typical("decode")
     cap.calls.clear()
     b1_long = time_decode(*call)
@@ -2670,6 +3078,7 @@ def main() -> int:
     del call
 
     counts, flash_errs, (q, k, v) = whole_prompt(dev)
+    paths["whole prompt f32"] = counts
     errs["flash_attention"]["whole_prompt"] = flash_errs["f32"]
     errs["flash_attention"]["vs_model"] = flash_errs["vs_model"]
     errs["flash_attention_tc"]["f32_layers_cast"] = flash_errs["bf16"]
@@ -2689,6 +3098,7 @@ def main() -> int:
     del q, k, v
     torch.cuda.empty_cache()
     counts, tc_errs, (q, k, v) = whole_prompt_bf16(dev)
+    paths["whole prompt bf16"] = counts
     errs["flash_attention_tc"]["whole_prompt"] = tc_errs["bf16"]
     errs["flash_attention_tc"]["vs_model"] = tc_errs["vs_model"]
     found["flash_attention_tc"] = (time_flash(q, k, v),
@@ -2714,7 +3124,7 @@ def main() -> int:
           + " (B4b is a programmatic dependent launch, not held against "
           "this floor: its cost on the path is on the split pair lines)")
 
-    fused_equals_reference()
+    f32_tokens = fused_equals_reference()
     split_equals_serial()
     chaos_open_loop()
 
@@ -2730,6 +3140,19 @@ def main() -> int:
     for what, by_kernel in ssm_families(dev, card).items():
         for name, e in by_kernel.items():
             errs[name][what] = e
+    torch.cuda.empty_cache()
+    paper_comparison(long_spec, dev, card)
+    torch.cuda.empty_cache()
+    mesh_paths, mesh_errs = kv_mesh_paths(
+        dev, {"kv_decode_append_attend": found["kv_decode_append_attend"][0],
+              "chunk short": found["kv_chunk_append_attend"][0],
+              "multiport_sram_step": found["multiport_sram_step"][0],
+              "split pair": long_pair, "chunk long": long_chunk,
+              "gather": gather}, f32_tokens)
+    paths.update(mesh_paths)
+    for name, e in mesh_errs.items():
+        errs[name]["kv_mesh"] = e
+    torch.cuda.empty_cache()
 
     train_full_width(card)
     train_f32_identity(card)
@@ -2753,10 +3176,15 @@ def main() -> int:
                      "replaces": replaces, "launches": launches,
                      **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}})
+                                          "library_ms")},
+                     "launches_by_path": {
+                         path: c[name] for path, c in paths.items()
+                         if c.get(name)}})
 
-    print("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
-                                  for r in rows))
+    print("kernels: " + ", ".join(
+        f"{r['name']} x{r['launches']} ("
+        + ", ".join(f"{p} x{n}" for p, n in r["launches_by_path"].items())
+        + ")" for r in rows))
     print(json.dumps({"kernels": rows}))
     print(card)
     # the run used one device, whatever else the host shows

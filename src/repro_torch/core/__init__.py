@@ -4,6 +4,7 @@ Public API:
   PortConfig / PortRequest / READ / WRITE  — port bundles (ports.py)
   MemorySpec / step / step_banked          — the memory + its semantics (multiport.py)
   build_schedule / simulate_waveform       — clock-generator analogue (clockgen.py)
+  baselines                                — single-port / replicated / coded designs
 """
 from repro_torch.core.clockgen import (Schedule, build_schedule,
                                        effective_access_rate,

@@ -4,16 +4,25 @@ Paper mapping (Fig. 2, §II-A-4): the FSM transitions between enabled ports in
 priority order, one SRAM access per internal slot, and is asynchronously reset
 to the highest-priority enabled port at each external CLK posedge.
 
-The walk is host-side: the port count is <= 4 and the configuration is fixed
-for a macro-cycle, so ``walk_static`` simply visits the enabled ports in
-service order and ``walk_schedule`` drives a cycle from an ordered list of
-per-traversal configurations.
+Two realizations:
+
+* ``walk_static``  — a host-side walk of a static configuration (used by
+  ``multiport.step``; ``walk_schedule`` drives a cycle from an ordered list
+  of per-traversal configurations).
+* ``walk_dynamic`` — a walk whose enable mask and priority are tensors: it
+  always runs MAX_PORTS slots (the JAX package's ``lax.scan`` over the slots
+  is a loop of 4 here) and disabled slots are no-ops. Its slot order, like
+  ``reset_state``/``transition``/``walk_order_dynamic``, is tensor ops only,
+  so a captured CUDA graph can hold it.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence, TypeVar
 
-from repro_torch.core.ports import PortConfig
+import torch
+
+from repro_torch.core import priority as prio
+from repro_torch.core.ports import MAX_PORTS, PortConfig
 
 S = TypeVar("S")
 P = TypeVar("P")
@@ -75,3 +84,42 @@ def walk_schedule(schedule: Sequence[tuple[PortConfig, P]], state: S,
     for config, payload in schedule:
         state = service(state, payload, config)
     return state
+
+
+def walk_order_dynamic(enabled_mask: torch.Tensor, priority_perm: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return (slot_ports int32[MAX_PORTS], slot_active bool[MAX_PORTS]):
+    slot k services the k-th enabled port in priority order; trailing slots
+    (k >= N) are idle (active False). A stable sort of the ranks with the
+    enabled ones first, as the hardware assigns slots."""
+    ranked_enabled = enabled_mask[priority_perm]                # bool by rank
+    order = torch.sort((~ranked_enabled).to(torch.int8), stable=True).indices
+    return priority_perm[order].to(torch.int32), ranked_enabled[order]
+
+
+def walk_dynamic(enabled_mask: torch.Tensor, priority_perm: torch.Tensor,
+                 state: S,
+                 service: Callable[[S, torch.Tensor, torch.Tensor], S]) -> S:
+    """Tensor-configured walk: always runs MAX_PORTS slots; disabled slots
+    are no-ops.
+
+    ``service(state, port_id, active)`` must be a no-op when ``active`` is
+    False (the caller typically masks its scatter/gather with ``active``).
+    """
+    slot_ports, slot_active = walk_order_dynamic(enabled_mask, priority_perm)
+    for k in range(MAX_PORTS):
+        state = service(state, slot_ports[k], slot_active[k])
+    return state
+
+
+def reset_state(enabled_mask: torch.Tensor,
+                priority_perm: torch.Tensor) -> torch.Tensor:
+    """CLKP posedge behaviour: async load of the highest-priority enabled
+    port."""
+    return prio.encode_dynamic(enabled_mask, priority_perm)
+
+
+def transition(current: torch.Tensor, enabled_mask: torch.Tensor,
+               priority_perm: torch.Tensor) -> torch.Tensor:
+    """CLK2 posedge behaviour: advance to the next enabled port (Fig. 2)."""
+    return prio.next_port_dynamic(current, enabled_mask, priority_perm)

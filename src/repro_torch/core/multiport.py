@@ -30,7 +30,8 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import fsm
-from repro_torch.core.ports import MAX_PORTS, WRITE, PortConfig, PortRequest
+from repro_torch.core.ports import (MAX_PORTS, WRITE, PortConfig, PortRequest,
+                                    empty_request)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +149,23 @@ def step_banked(spec: MemorySpec, config: PortConfig, storage: torch.Tensor,
     from repro_torch.kernels import ops  # local import: kernels depend on core
 
     return ops.multiport_step(spec, config, storage, list(requests))
+
+
+def pack_requests(config: PortConfig, queue_len: int, spec: MemorySpec,
+                  device="cuda", **per_port: PortRequest
+                  ) -> list[PortRequest]:
+    """Build the MAX_PORTS request list from keyword ports 'a'..'d'; a port
+    not given gets an all-off request of ``queue_len`` lanes on
+    ``device``."""
+    names = "abcd"
+    out = []
+    for i in range(MAX_PORTS):
+        req = per_port.get(names[i])
+        if req is None:
+            req = empty_request(queue_len, spec.word_width, spec.dtype,
+                                device)
+        out.append(req)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -89,7 +89,7 @@ def _frontend_table(cfg: ArchConfig, data_cfg: DataConfig) -> np.ndarray:
 class ShardedLoader:
     """Puts (seed, step)-addressable batches on one device (the card unless
     the caller passes ``device="cpu"``). The JAX loader's mesh placement
-    (``shardings``) is not ported: it comes with ROADMAP A8/A11."""
+    (``shardings``) is not ported: it comes with ROADMAP A8b/A11."""
 
     def __init__(self, cfg: ArchConfig, data_cfg: DataConfig, *, batch: int,
                  seq: int, device="cuda"):

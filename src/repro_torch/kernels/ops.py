@@ -7,6 +7,7 @@ plain torch versions run instead.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -63,10 +64,25 @@ def multiport_step(spec: MemorySpec, config: PortConfig,
     return storage, reads
 
 
-def _not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device KV (a kv mesh) is not ported yet — ROADMAP item A8")
+def _kv_shard_wrap(kernel, mesh, mesh_axis: str, batch: int):
+    """Run a fused KV kernel once per shard of ``mesh_axis`` over the batch
+    axis of every operand (``distributed.sharding.shard_apply``, the port's
+    ``shard_map``): each shard's launch takes its own rows' lengths, so its
+    own live-tile bound and, for the split pair, its own key partition,
+    and its caches are updated in place. Returns the kernel unchanged when
+    the mesh is absent or trivial."""
+    if mesh is None:
+        return kernel
+    from repro_torch.distributed.sharding import shard_apply
+    n = int(mesh.shape[mesh_axis])
+    if n == 1:
+        return kernel
+    if batch % n:
+        raise ValueError(
+            f"kv-sharded kernel launch needs the batch ({batch}) to divide "
+            f"across the {n}-way {mesh_axis!r} axis — pad the staged batch "
+            f"to a whole number of rows per device")
+    return functools.partial(shard_apply, mesh, kernel, axis=mesh_axis)
 
 
 def fused_decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len, *,
@@ -74,7 +90,7 @@ def fused_decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len, *,
                            length_mask: bool = True,
                            dynamic_grid: bool = False,
                            num_kv_splits: int = 1, mesh=None,
-                           port_mix: str = "wr"):
+                           mesh_axis: str = "kv", port_mix: str = "wr"):
     """Scheduled-port-mix decode step (see kv_multiport.py).
 
     ``port_mix="wr"`` (a 1W+1R traversal is schedulable) runs the fused
@@ -82,41 +98,44 @@ def fused_decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len, *,
     ``num_kv_splits`` parallel chains plus a combine when it is > 1;
     ``"w+r"`` (a port budget of 1) degrades to the two-pass oracle
     ``ref.decode_attention_ref``, which returns new caches and has no
-    traversal to split (``num_kv_splits`` is ignored)."""
-    _not_ported(mesh)
+    traversal to split (``num_kv_splits`` and ``mesh`` are ignored).
+    ``mesh`` (with a ``mesh_axis`` axis) runs the kernel once per shard on
+    the shard's contiguous block of rows (``_kv_shard_wrap``); both split
+    stages run inside each shard's call."""
     if port_mix == "w+r":
         from repro_torch.kernels import ref
         return ref.decode_attention_ref(q, cache_k, cache_v, new_k, new_v,
                                         cache_len)
     if port_mix != "wr":
         raise ValueError(f"unknown port_mix: {port_mix!r}")
-    return kvmp.fused_append_attend(q, cache_k, cache_v, new_k, new_v,
-                                    cache_len, seq_tile=seq_tile,
-                                    live_len=live_len,
-                                    length_mask=length_mask,
-                                    dynamic_grid=dynamic_grid,
-                                    num_kv_splits=num_kv_splits)
+    kernel = functools.partial(kvmp.fused_append_attend, seq_tile=seq_tile,
+                               live_len=live_len, length_mask=length_mask,
+                               dynamic_grid=dynamic_grid,
+                               num_kv_splits=num_kv_splits)
+    kernel = _kv_shard_wrap(kernel, mesh, mesh_axis, q.shape[0])
+    return kernel(q, cache_k, cache_v, new_k, new_v, cache_len)
 
 
 def fused_prefill_chunk_attention(q, cache_k, cache_v, new_k, new_v, offset,
                                   chunk_len, *, seq_tile: int = 128,
                                   live_len: int | None = None,
                                   dynamic_grid: bool = False, mesh=None,
+                                  mesh_axis: str = "kv",
                                   port_mix: str = "wr"):
     """Scheduled-port-mix chunked-prefill step (see kv_prefill_chunk.py);
-    ``"w+r"`` degrades to ``ref.prefill_chunk_attention_ref``."""
-    _not_ported(mesh)
+    ``"w+r"`` degrades to ``ref.prefill_chunk_attention_ref``. ``mesh``
+    shards the launch over the batch axis like the decode wrapper."""
     if port_mix == "w+r":
         from repro_torch.kernels import ref
         return ref.prefill_chunk_attention_ref(q, cache_k, cache_v, new_k,
                                                new_v, offset, chunk_len)
     if port_mix != "wr":
         raise ValueError(f"unknown port_mix: {port_mix!r}")
-    return kvpc.fused_chunk_append_attend(q, cache_k, cache_v, new_k, new_v,
-                                          offset, chunk_len,
-                                          seq_tile=seq_tile,
-                                          live_len=live_len,
-                                          dynamic_grid=dynamic_grid)
+    kernel = functools.partial(kvpc.fused_chunk_append_attend,
+                               seq_tile=seq_tile, live_len=live_len,
+                               dynamic_grid=dynamic_grid)
+    kernel = _kv_shard_wrap(kernel, mesh, mesh_axis, q.shape[0])
+    return kernel(q, cache_k, cache_v, new_k, new_v, offset, chunk_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

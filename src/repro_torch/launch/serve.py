@@ -21,6 +21,15 @@ invariant audits after every fault:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 0.8 \
         --requests 10 --chaos-seed 23 --slo 40
+
+Data-parallel KV: ``--kv-shards N`` shards the paged pool page-aligned over
+a ``kv`` mesh of the first N visible devices of ``--device``'s type
+(``launch.mesh.make_kv_mesh``; the CPU counts as one device), and the
+fused kernels launch once per device on its own row block; fewer devices
+than N exit naming the count. To run N shards on fewer devices (one card,
+or the CPU), build the engine with ``make_kv_mesh(N, devices=[...])``
+directly, with ``engine_kwargs`` and ``closed_loop_prompts`` below giving
+it the launcher's settings and requests.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs import registry
 from repro_torch.kernels import launch_counts
+from repro_torch.launch.mesh import make_kv_mesh
 from repro_torch.models import KV_FAMILIES, init_params
 from repro_torch.serve import traffic
 from repro_torch.serve.chaos import ChaosHarness, FaultPlan
@@ -78,8 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "attention chains plus an LSE combine (1 = the "
                          "serial kernel; fused decode only)")
     ap.add_argument("--kv-shards", type=int, default=1,
-                    help="shard the paged KV pool across devices (only 1 "
-                         "is ported)")
+                    help="data-parallel KV: shard the paged pool "
+                         "page-aligned across this many devices (a 'kv' "
+                         "mesh); kernels run per device on its rows")
     ap.add_argument("--single-port", action="store_true")
     ap.add_argument("--kernel-mode", default="pallas",
                     choices=["pallas", "reference"],
@@ -136,9 +147,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.num_kv_splits < 1:
         raise SystemExit(f"--num-kv-splits must be >= 1, "
                          f"got {args.num_kv_splits}")
-    if args.kv_shards != 1:
-        raise SystemExit("--kv-shards > 1 (multi-device KV) is not ported "
-                         "to repro_torch yet — ROADMAP item A8")
     return args
 
 
@@ -176,6 +184,45 @@ def _arrivals(args: argparse.Namespace, cfg) -> tuple:
     return arrivals
 
 
+def kv_mesh(args: argparse.Namespace):
+    """The kv mesh ``--kv-shards`` asks for over the visible devices of
+    ``--device``'s type (the CPU counts as one), or None for one shard.
+    Too few devices exit naming the count."""
+    if args.kv_shards == 1:
+        return None
+    dev = torch.device(args.device)
+    try:
+        return make_kv_mesh(args.kv_shards,
+                            devices=None if dev.type == "cuda" else [dev])
+    except ValueError as e:
+        raise SystemExit(f"--kv-shards: {e}")
+
+
+def engine_kwargs(args: argparse.Namespace) -> dict:
+    """The ``MultiPortEngine`` keywords the flags set: all but the
+    parameters, the config, the mesh and the device."""
+    seq_tile = (min(64, args.max_len) if args.seq_tile is None
+                else min(args.seq_tile, args.max_len))
+    return dict(slots=args.slots, max_slots=max(args.max_slots, args.slots),
+                max_len=args.max_len, chunk_tokens=args.chunk_tokens,
+                kernel_mode=args.kernel_mode, single_port=args.single_port,
+                seq_tile=seq_tile, length_bound=not args.no_length_bound,
+                dynamic_grid=not args.no_dynamic_grid,
+                num_kv_splits=args.num_kv_splits,
+                schedule_mode=args.schedule_mode, max_ports=args.max_ports,
+                default_ttl_ticks=args.deadline,
+                max_queue_depth=args.max_queue_depth,
+                prefix_cache=not args.no_prefix_cache)
+
+
+def closed_loop_prompts(args: argparse.Namespace, vocab: int) -> list:
+    """The closed loop's ``--requests`` prompts of 3-9 tokens, drawn from
+    ``--seed``."""
+    rng = np.random.default_rng(args.seed)
+    return [[int(t) for t in rng.integers(0, vocab, int(rng.integers(3, 10)))]
+            for _ in range(args.requests)]
+
+
 def main(argv=None) -> MultiPortEngine:
     """Serve the requests; returns the engine."""
     return run(parse_args(argv))[0]
@@ -207,25 +254,16 @@ def run(args: argparse.Namespace) -> tuple:
     if args.num_kv_splits > 1:
         print(f"split-KV decode: {args.num_kv_splits} partial chains per "
               f"sequence + LSE combine (fused decode path)")
+    mesh = kv_mesh(args)
+    if mesh is not None:
+        print(f"data-parallel KV: pool sharded page-aligned over "
+              f"{len(mesh.devices)} devices "
+              f"({[str(d) for d in mesh.devices]})")
     dev = _device.resolve(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    eng = MultiPortEngine(params, cfg, slots=args.slots,
-                          max_slots=max(args.max_slots, args.slots),
-                          max_len=args.max_len,
-                          chunk_tokens=args.chunk_tokens,
-                          kernel_mode=args.kernel_mode,
-                          single_port=args.single_port,
-                          seq_tile=seq_tile,
-                          length_bound=not args.no_length_bound,
-                          dynamic_grid=not args.no_dynamic_grid,
-                          num_kv_splits=args.num_kv_splits,
-                          schedule_mode=args.schedule_mode,
-                          max_ports=args.max_ports,
-                          default_ttl_ticks=args.deadline,
-                          max_queue_depth=args.max_queue_depth,
-                          prefix_cache=not args.no_prefix_cache,
-                          device=dev)
+    eng = MultiPortEngine(params, cfg, mesh=mesh, device=dev,
+                          **engine_kwargs(args))
     harness = None
     if open_loop(args):
         arrivals = _arrivals(args, cfg)
@@ -242,11 +280,8 @@ def run(args: argparse.Namespace) -> tuple:
             harness.finalize(eng)
         done = eng.finished
     else:
-        rng = np.random.default_rng(args.seed)
-        for _ in range(args.requests):
-            eng.submit([int(t) for t in
-                        rng.integers(0, cfg.vocab, int(rng.integers(3, 10)))],
-                       max_new=args.max_new)
+        for prompt in closed_loop_prompts(args, cfg.vocab):
+            eng.submit(prompt, max_new=args.max_new)
         t0 = time.perf_counter()
         done = eng.run()
     if eng.device.type == "cuda":
@@ -276,6 +311,13 @@ def run(args: argparse.Namespace) -> tuple:
           f"{eng.prefill_tile_reads / max(eng.prefill_chunks, 1):.2f}/chunk "
           f"vs {-(-args.max_len // eng.seq_tile)} dense; pool "
           f"r/w {eng.pool.tile_reads}/{eng.pool.tile_writes}")
+    if eng.n_kv_shards > 1:
+        print(f"kv shards: {eng.n_kv_shards} "
+              f"(pages/shard {eng.pool.plan.pages_per_shard}); steady decode "
+              f"tile reads by device {eng.steady_decode_tile_reads_by_dev} "
+              f"(balance {eng.kv_tile_balance:.2f}x ideal); pool tiles r/w "
+              f"by shard {eng.pool.tile_reads_by_shard}/"
+              f"{eng.pool.tile_writes_by_shard}")
     if eng.prefix_cache:
         ps = eng.prefix_stats
         print(f"prefix cache: {ps['hits']}/{ps['lookups']} admissions "

@@ -10,7 +10,7 @@ The weights are random, drawn from seed 0 on the device; the data is the
 chain task of ``data/pipeline.py`` at seed 0. ``--multi-pod
 --compress-grads`` runs the int8 error-feedback mean over 2 pods, whose
 per-pod grads are the pod slices of the batch on this one device.
-``--mesh production`` is not ported (ROADMAP A8/A11).
+``--mesh production`` is not ported (ROADMAP A8b/A11).
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
     if args.mesh == "production":
         raise SystemExit("--mesh production (a sharded mesh) is not ported "
-                         "to repro_torch yet — ROADMAP items A8/A11")
+                         "to repro_torch yet — ROADMAP items A8b/A11")
     return args
 
 

@@ -43,9 +43,20 @@ never straddles two shards). Each sequence gets a HOME shard on admission
 (least-loaded by live-sequence count, then by free pages) and every one of
 its pages is carved from that shard's own free list. A cycle whose page
 demand overflows a home shard raises :class:`PoolCapacityError` BEFORE any
-mutation, even when other shards still have free pages. This slice of the
-port keeps that control plane over unsharded storage on one device; the
-multi-device data plane is ROADMAP item A8.
+mutation, even when other shards still have free pages (cross-shard spill
+would break locality; the scheduler can evict or re-admit instead). Page
+tables stay replicated host-side control plane.
+
+With a ``mesh`` (``launch.mesh.make_kv_mesh``) of more than one shard, the
+data plane is sharded too: ``storage`` is a tuple of one ``[words_per_shard,
+W]`` tensor per shard, each on its mesh device (the geometry is
+``kv_pool_spec``'s), and each traversal services, on every shard, the
+request lanes whose global word addresses fall inside that shard's window
+(local re-addressing + mask); read ports sum their lane results across the
+shards onto the first shard's device — exactly one shard owns each address,
+so the sum IS the gather (the JAX package's ``psum``). One sharded cycle is
+still ONE traversal of (now distributed) storage. ``kv_shards`` without a
+mesh keeps the device-aware control plane over unsharded storage.
 
 **Refcounted copy-on-write page sharing** (the prefix-cache substrate):
 pages are no longer exclusively owned — ``refcounts`` tracks how many page
@@ -78,7 +89,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import (MemorySpec, PortConfig, READ, WRITE, PortRequest,
                               empty_request, step, step_banked)
-from repro_torch.distributed.sharding import (KVShardPlan, kv_shard_plan,
+from repro_torch.distributed.sharding import (KVShardPlan, kv_pool_spec,
+                                              kv_shard_plan, on_device,
                                               shard_of_pages)
 
 # pool port indices
@@ -173,18 +185,59 @@ def _pool_step(spec, config, storage, requests, *, use_kernel: bool):
     return step(spec, config, storage, requests)
 
 
+def _sharded_pool_step(local_spec, config, storage: tuple, requests, *,
+                       wps: int, use_kernel: bool):
+    """One traversal of a sharded pool: shard ``s`` services the request
+    lanes whose global addresses land in its ``wps``-word window
+    ``[s*wps, (s+1)*wps)``, re-addressed to local (lanes owned by other
+    shards are masked off, and masked read lanes return 0), on its own
+    storage on its own device; then the read ports' lane results are summed
+    across the shards onto the first shard's device. Exactly one shard owns
+    each address, so the sum IS the gather, and write and scrub lanes
+    commit on their owner only. Returns (the shards' storage, the results
+    of the MAX_PORTS ports)."""
+    new, outs = [], []
+    for sid, st in enumerate(storage):
+        lo = sid * wps
+        local = tuple(
+            PortRequest(addr=(r.addr - lo).to(st.device),
+                        data=r.data.to(st.device),
+                        mask=(r.mask & (r.addr >= lo)
+                              & (r.addr < lo + wps)).to(st.device))
+            for r in requests)
+        with on_device(st.device):
+            st, got = _pool_step(local_spec, config, st, local,
+                                 use_kernel=use_kernel)
+        new.append(st)
+        outs.append(got)
+    home = storage[0].device
+    reads = []
+    for p in range(len(requests)):
+        if config.enabled[p] and config.roles[p] == READ:
+            total = outs[0][p]
+            for got in outs[1:]:
+                total = total + got[p].to(home)
+            reads.append(total)
+        else:
+            reads.append(outs[0][p])
+    return tuple(new), reads
+
+
 @dataclasses.dataclass
 class PagedPool:
     """Physical pool + per-shard free lists + per-sequence page tables."""
 
     spec: MemorySpec
     page_tokens: int
-    storage: torch.Tensor
+    storage: Union[torch.Tensor, tuple]   # [num_words, W]; with a mesh of
+                                       # > 1 shards, one [words_per_shard,
+                                       # W] tensor per shard, on its device
     free_by_shard: list                # shard -> free page ids (device-aware)
     tables: dict                       # seq_id -> list[page_id]
     lengths: dict                      # seq_id -> tokens stored
     plan: KVShardPlan = None           # page-aligned shard geometry
     home: dict = dataclasses.field(default_factory=dict)  # seq_id -> shard
+    spec_local: Optional[MemorySpec] = None   # per-shard geometry (mesh only)
     use_kernel: bool = False
     traversals: int = 0                # physical pool traversals serviced
     seq_tile: int = 0                  # words per accounting tile
@@ -221,7 +274,28 @@ class PagedPool:
     def create(cls, *, n_pages: int, page_tokens: int, word_width: int,
                dtype=torch.float32, num_banks: int = 8,
                use_kernel: bool = False, seq_tile: int = 0,
-               kv_shards: int = 1, device="cuda") -> "PagedPool":
+               kv_shards: int = 1, mesh=None, kv_axis: str = "kv",
+               device="cuda") -> "PagedPool":
+        """The pool, on ``device`` (the card unless ``device="cpu"``); with
+        a ``mesh`` of more than one shard, one storage shard on each mesh
+        device instead (``kv_shards`` must then be 1 or the mesh's size,
+        and every mesh device of ``device``'s type: the mesh does not move
+        the pool to another kind of device than its caller's)."""
+        if mesh is not None:
+            if kv_axis not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh {mesh.axis_names} has no {kv_axis!r} axis")
+            kind = torch.device(device).type
+            if any(d.type != kind for d in mesh.devices):
+                raise ValueError(
+                    f"kv mesh devices {[str(d) for d in mesh.devices]} are "
+                    f"not all {kind} devices like the pool's {device!r}")
+            mesh_n = int(mesh.shape[kv_axis])
+            if kv_shards not in (1, mesh_n):
+                raise ValueError(
+                    f"kv_shards={kv_shards} disagrees with the mesh's "
+                    f"{mesh_n}-way {kv_axis!r} axis")
+            kv_shards = mesh_n
         # page-aligned shard plan: rounds the pool UP to whole pages/shard
         plan = kv_shard_plan(kv_shards, n_pages=n_pages,
                              page_tokens=page_tokens)
@@ -231,12 +305,26 @@ class PagedPool:
         num_banks = max(num_banks, 1)
         spec = MemorySpec(num_words=num_words, word_width=word_width,
                           dtype=dtype, num_banks=num_banks)
-        storage = spec.init_storage(device=_device.resolve(device))
+        spec_local = None
+        if mesh is not None and kv_shards > 1:
+            kv_pool_spec(mesh, num_words=num_words, page_tokens=page_tokens,
+                         axis=kv_axis)
+            wps = plan.words_per_shard
+            nb_local = num_banks
+            while wps % nb_local:
+                nb_local //= 2
+            spec_local = MemorySpec(num_words=wps, word_width=word_width,
+                                    dtype=dtype, num_banks=max(nb_local, 1))
+            storage = tuple(spec_local.init_storage(device=d)
+                            for d in mesh.devices)
+        else:
+            storage = spec.init_storage(device=_device.resolve(device))
         return cls(spec=spec, page_tokens=page_tokens, storage=storage,
                    free_by_shard=[list(range(s * plan.pages_per_shard,
                                              (s + 1) * plan.pages_per_shard))
                                   for s in range(kv_shards)],
-                   tables={}, lengths={}, plan=plan, use_kernel=use_kernel,
+                   tables={}, lengths={}, plan=plan, spec_local=spec_local,
+                   use_kernel=use_kernel,
                    seq_tile=seq_tile or page_tokens,
                    tile_reads_by_shard=[0] * kv_shards,
                    tile_writes_by_shard=[0] * kv_shards,
@@ -244,8 +332,30 @@ class PagedPool:
                    quarantine_by_shard=[[] for _ in range(kv_shards)])
 
     @property
+    def sharded(self) -> bool:
+        """True when the storage is split over a mesh's devices."""
+        return self.spec_local is not None
+
+    @property
     def device(self) -> torch.device:
-        return self.storage.device
+        """Where the pool's results land: the first shard's device."""
+        return self.storage[0].device if self.sharded else self.storage.device
+
+    def _read_words(self, addr: np.ndarray) -> torch.Tensor:
+        """Words at global addresses ``addr`` ([n, W] on :attr:`device`),
+        each read from the shard that owns it."""
+        idx = torch.from_numpy(np.asarray(addr, np.int64))
+        if not self.sharded:
+            return self.storage[idx.to(self.device)]
+        out = torch.empty((len(idx), self.spec.word_width),
+                          dtype=self.spec.dtype, device=self.device)
+        wps = self.words_per_shard
+        for sid, st in enumerate(self.storage):
+            sel = (idx // wps) == sid
+            if bool(sel.any()):
+                got = st[(idx[sel] - sid * wps).to(st.device)]
+                out[sel.to(self.device)] = got.to(self.device)
+        return out
 
     # ---- shard geometry ------------------------------------------------------
     @property
@@ -708,8 +818,7 @@ class PagedPool:
         KV it never computed — control-plane staging like the CoW source
         read, not a ported traversal (the pool's ports only carry words
         the model is writing or attending this macro-cycle)."""
-        addr = self._addr(seq, np.asarray(positions))
-        got = self.storage[torch.from_numpy(addr).to(self.device)]
+        got = self._read_words(self._addr(seq, np.asarray(positions)))
         return got.float().cpu().numpy()[:, :self.io_width]
 
     def _cow_prepare(self, seq: int, new_tokens: int):
@@ -829,6 +938,10 @@ class PagedPool:
         Returns {"read": [Q, W] | list thereof | None} mirroring the input
         shape of ``read``.
 
+        A sharded pool (a mesh of more than one shard) services the
+        traversal on every shard, each over its own address window, and
+        sums the read lanes — still ONE traversal of (now distributed)
+        storage.
         """
         read_was_dict = isinstance(read, dict)
         appends = self._as_streams(append)
@@ -892,8 +1005,7 @@ class PagedPool:
                 # land in the same traversal), written to the fresh page.
                 # Disjoint from the stream's own words (those start at the
                 # copied offset), so lane order never matters.
-                vals = self.storage[torch.from_numpy(old).to(dev)]
-                vals = vals.float().cpu().numpy()
+                vals = self._read_words(old).float().cpu().numpy()
                 n = len(new)
                 addr[at:at + n] = new
                 data[at:at + n] = vals
@@ -953,9 +1065,14 @@ class PagedPool:
                          roles=_ROLES, priority=priority)
         self.mix_counts[cfg.describe()] = self.mix_counts.get(
             cfg.describe(), 0) + 1
-        self.storage, out = _pool_step(self.spec, cfg, self.storage,
-                                       tuple(reqs),
-                                       use_kernel=self.use_kernel)
+        if self.sharded:
+            self.storage, out = _sharded_pool_step(
+                self.spec_local, cfg, self.storage, tuple(reqs),
+                wps=self.words_per_shard, use_kernel=self.use_kernel)
+        else:
+            self.storage, out = _pool_step(self.spec, cfg, self.storage,
+                                           tuple(reqs),
+                                           use_kernel=self.use_kernel)
         self.traversals += 1
         self.tile_writes += self._count_tiles(w_tiles,
                                               self.tile_writes_by_shard)

@@ -67,9 +67,10 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
     Memory is O(B * H * q_chunk * S) instead of O(B * H * S^2); FLOPs are
     unchanged. q: [B, S, H, D]; k, v: [B, S, Hkv, D]. Returns [B, S, H, D].
-    The products are summed in f32 (JAX's ``preferred_element_type``) and
-    the probabilities are rounded to v's dtype before the PV product, as
-    there.
+    The products take the operands in their own dtype and sum in f32
+    (``layers.bmm_f32``: JAX's ``preferred_element_type``, with no f32
+    copies of K/V on the card), and the probabilities are rounded to v's
+    dtype before the PV product, as there.
     """
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -77,19 +78,21 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     q_chunk = min(q_chunk, s)
     assert s % q_chunk == 0, (s, q_chunk)
     scale = 1.0 / (d ** 0.5)
-    f32 = torch.float32
-    kf, vf = k.to(f32), v.to(f32)
+    # one product per (row, kv head): its G query heads x the chunk's rows
+    kh = k.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    vh = v.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
     kpos = torch.arange(s, device=q.device)
     outs = []
     for c0 in range(0, s, q_chunk):
         qc = q[:, c0:c0 + q_chunk].reshape(b, q_chunk, hkv, g, d)
+        qh = qc.permute(0, 2, 1, 3, 4).reshape(b * hkv, q_chunk * g, d)
         qpos = c0 + torch.arange(q_chunk, device=q.device)
-        sc = torch.einsum("bchgd,bshd->bchgs", qc.to(f32), kf) * scale
-        mask = (qpos[:, None] >= kpos[None, :])[None, :, None, None, :]
+        sc = L.bmm_f32(qh, kh.transpose(1, 2)) * scale   # [B*Hkv, C*G, S]
+        mask = (qpos[:, None] >= kpos[None, :]).repeat_interleave(g, dim=0)
         sc = sc.masked_fill(~mask, float("-inf"))
         pr = torch.softmax(sc, dim=-1).to(v.dtype)
-        oc = torch.einsum("bchgs,bshd->bchgd", pr.to(f32), vf)
-        outs.append(oc.to(q.dtype))
+        oc = L.bmm_f32(pr, vh).reshape(b, hkv, q_chunk, g, d)
+        outs.append(oc.permute(0, 2, 1, 3, 4).to(q.dtype))
     return torch.cat(outs, dim=1).reshape(b, s, h, d)
 
 
@@ -144,10 +147,12 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, offset: torch.Tensor,
                             mrope_sections=(16, 24, 24),
                             kernel_mode: str = "reference",
                             seq_tile: int = 128, dynamic_grid: bool = False,
+                            mesh=None, mesh_axis: str = "kv",
                             port_mix: str = "wr", compute_dtype=None):
     """One fixed-size prompt chunk per sequence, mid-prefill: the W port
     writes the chunk's K,V at [offset, offset+chunk_len) and the R port
     attends causally over everything cached so far, the chunk included.
+    ``mesh`` runs the fused kernel once per shard of its batch rows.
 
     x: [B, C, d] (rows >= chunk_len are padding); offset/chunk_len: [B];
     cache_k/v: [B, S_max, Hkv, D]. Returns (out [B, C, d], k', v') —
@@ -165,7 +170,8 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, offset: torch.Tensor,
         from repro_torch.kernels import ops
         out, cache_k, cache_v = ops.fused_prefill_chunk_attention(
             q, cache_k, cache_v, new_k, new_v, offset, chunk_len,
-            seq_tile=seq_tile, dynamic_grid=dynamic_grid, port_mix=port_mix)
+            seq_tile=seq_tile, dynamic_grid=dynamic_grid, mesh=mesh,
+            mesh_axis=mesh_axis, port_mix=port_mix)
     elif kernel_mode == "reference":
         from repro_torch.kernels import ref
         out, cache_k, cache_v = ref.prefill_chunk_attention_ref(
@@ -183,10 +189,12 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      mrope_sections=(16, 24, 24),
                      kernel_mode: str = "reference", seq_tile: int = 128,
                      length_mask: bool = True, dynamic_grid: bool = False,
-                     num_kv_splits: int = 1, port_mix: str = "wr",
+                     num_kv_splits: int = 1, mesh=None,
+                     mesh_axis: str = "kv", port_mix: str = "wr",
                      compute_dtype=None):
     """One decode step. x: [B, 1, d]; cache_k/v: [B, S_max, Hkv, D];
-    cache_len: [B] current lengths. Returns (out [B, 1, d], k', v')."""
+    cache_len: [B] current lengths. Returns (out [B, 1, d], k', v').
+    ``mesh`` runs the fused kernel once per shard of its batch rows."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, compute_dtype)
     q, k = _apply_pos(q, k, _text_positions(cache_len.long()[:, None],
@@ -201,7 +209,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
             q1, cache_k, cache_v, new_k, new_v, cache_len,
             seq_tile=seq_tile, length_mask=length_mask,
             dynamic_grid=dynamic_grid, num_kv_splits=num_kv_splits,
-            port_mix=port_mix)
+            mesh=mesh, mesh_axis=mesh_axis, port_mix=port_mix)
     elif kernel_mode == "reference":
         from repro_torch.kernels import ref
         out, cache_k, cache_v = ref.decode_attention_ref(

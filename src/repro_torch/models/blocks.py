@@ -82,6 +82,7 @@ def transformer_block_prefill_chunk(p: dict, x, offset, chunk_len, cache_k,
                                     kernel_mode: str = "reference",
                                     seq_tile: int = 128,
                                     dynamic_grid: bool = False,
+                                    mesh=None, mesh_axis: str = "kv",
                                     port_mix: str = "wr"):
     h, ck, cv = A.attention_prefill_chunk(
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), offset, chunk_len,
@@ -89,8 +90,8 @@ def transformer_block_prefill_chunk(p: dict, x, offset, chunk_len, cache_k,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
         mrope_sections=tuple(cfg.mrope_sections), kernel_mode=kernel_mode,
-        seq_tile=seq_tile, dynamic_grid=dynamic_grid, port_mix=port_mix,
-        compute_dtype=cfg.cdtype)
+        seq_tile=seq_tile, dynamic_grid=dynamic_grid, mesh=mesh,
+        mesh_axis=mesh_axis, port_mix=port_mix, compute_dtype=cfg.cdtype)
     return _ffn(p, x + h, cfg)[0], ck, cv
 
 
@@ -98,7 +99,8 @@ def transformer_block_decode(p: dict, x, cache_k, cache_v, cache_len,
                              cfg: ArchConfig, kernel_mode: str = "reference",
                              seq_tile: int = 128, length_mask: bool = True,
                              dynamic_grid: bool = False,
-                             num_kv_splits: int = 1, port_mix: str = "wr"):
+                             num_kv_splits: int = 1, mesh=None,
+                             mesh_axis: str = "kv", port_mix: str = "wr"):
     h, ck, cv = A.attention_decode(
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cache_k, cache_v,
         cache_len,
@@ -106,8 +108,8 @@ def transformer_block_decode(p: dict, x, cache_k, cache_v, cache_len,
         pos_embed=cfg.pos_embed, rope_theta=cfg.rope_theta,
         mrope_sections=tuple(cfg.mrope_sections), kernel_mode=kernel_mode,
         seq_tile=seq_tile, length_mask=length_mask, dynamic_grid=dynamic_grid,
-        num_kv_splits=num_kv_splits, port_mix=port_mix,
-        compute_dtype=cfg.cdtype)
+        num_kv_splits=num_kv_splits, mesh=mesh, mesh_axis=mesh_axis,
+        port_mix=port_mix, compute_dtype=cfg.cdtype)
     return _ffn(p, x + h, cfg)[0], ck, cv
 
 

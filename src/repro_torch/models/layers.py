@@ -71,6 +71,40 @@ def linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` with a backward (the
+    op has no derivative in torch 2.11): each gradient is the f32 product
+    of the f32 cotangent with the other operand's f32 copy, rounded to its
+    operand's dtype — what autograd gives the cast-then-multiply form."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` ([n, i, k] x [n, k, j]) summed and returned in
+    f32: the JAX package's ``preferred_element_type=f32``. On CUDA, bf16 or
+    f16 operands go into the product as they are (no f32 copies); elsewhere
+    they are cast to f32 first (a product of two bf16 values is exact in
+    f32, so only the summation order can differ)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) \
+            and b.dtype == a.dtype:
+        return _BmmF32.apply(a, b)
+    return torch.bmm(a.float(), b.float())
+
+
 def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
                    device="cuda") -> dict:
     return {"w": normal_init(gen, (vocab, d), dtype, 1.0,

@@ -14,9 +14,12 @@ plain PyTorch here.
 
 The dtype points are the JAX package's: operands keep their input dtype,
 the decay math runs in f32, every product the JAX package accumulates with
-``preferred_element_type=f32`` is an f32 product here (its operands cast to
-f32: a product of two bf16 values is exact in f32), and the scores are cast
-to the input dtype before the P.V product.
+``preferred_element_type=f32`` is an f32 product here, and the scores are
+cast to the input dtype before the P.V product. Where both operands are in
+the input dtype (the scores with V, and SSD's q.k), the product takes them
+as they are and sums in f32 (``layers.bmm_f32``: no f32 copies on the
+card); where one operand is already f32, the other is cast to f32 (a
+product of two bf16 values is exact in f32), as JAX promotes it.
 
 The intra-chunk pairwise decay exp(cum_i - cum_j) is computed directly,
 masked to -inf above the diagonal before the ``exp``: exact and
@@ -31,7 +34,24 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import bmm_f32
+
 F32 = torch.float32
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, Q, H, X] -> [B*H, Q, X]."""
+    b, q, h, last = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, q, last)
+
+
+def _scores_v(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """einsum("bijh,bjhv->bihv") of scores s [B, Qi, Qj, H] and v
+    [B, Qj, H, V], both in the input dtype, summed in f32."""
+    b, qi, qj, h = s.shape
+    y = bmm_f32(s.permute(0, 3, 1, 2).reshape(b * h, qi, qj),
+                _heads_first(v))
+    return y.reshape(b, h, qi, -1).permute(0, 2, 1, 3)
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -110,7 +130,7 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
                            float("-inf"))
         s = torch.einsum("bijhk,bjhk->bijh", qf[:, :, None] * torch.exp(diff),
                          kf)
-        y_intra = torch.einsum("bijh,bjhv->bihv", s.to(dt).to(F32), vf)
+        y_intra = _scores_v(s.to(dt), vn)
         if u is not None:
             yb = (qf * u * kf).sum(-1)                 # [B,Q,H]
             y_intra = y_intra + yb[..., None] * vf
@@ -164,11 +184,12 @@ def _chunked_scalar_decay(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                qf * torch.exp(cum)[..., None], state)
 
         # intra-chunk: s_ij = (q_i . k_j) * exp(cum_i - cum_j), i >= j
-        dots = torch.einsum("bihk,bjhk->bijh", qf, kf)
+        dots = bmm_f32(_heads_first(qn), _heads_first(kn).transpose(1, 2))
+        dots = dots.reshape(b, h, chunk, chunk).permute(0, 2, 3, 1)
         diff = cum[:, :, None] - cum[:, None, :]       # [B,Qi,Qj,H]
         diff = torch.where(causal[None, :, :, None], diff, float("-inf"))
         s = (dots * torch.exp(diff)).to(dt)
-        y_intra = torch.einsum("bijh,bjhv->bihv", s.to(F32), vf)
+        y_intra = _scores_v(s, vn)
 
         # chunk summary + state update
         kdec = kf * torch.exp(total[:, None] - cum)[..., None]

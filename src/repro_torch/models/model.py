@@ -354,20 +354,22 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
 def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                 *, kernel_mode: str = "reference", seq_tile: int = 128,
                 length_mask: bool = True, dynamic_grid: bool = False,
-                num_kv_splits: int = 1, port_mix: str = "wr"
-                ) -> tuple[PyTree, torch.Tensor]:
+                num_kv_splits: int = 1, mesh=None, mesh_axis: str = "kv",
+                port_mix: str = "wr") -> tuple[PyTree, torch.Tensor]:
     """One new token per sequence. Returns (state', logits [B, V]); the
     decode state is updated in place (see the module docstring).
 
     ``seq_tile``/``length_mask`` bound the fused kernel's traversal to live
-    cache tiles. The kernel modes and options reach the attention layers:
+    cache tiles; ``mesh`` (data-parallel KV) runs it once per shard of the
+    batch rows. The kernel modes and options reach the attention layers:
     every layer of a KV-cache family, the hybrid family's shared block
     once a group; the ssm family has none."""
     lens = state["len"]
     x = _stem(params, cfg, batch["inputs"], offset=lens)
     attn = dict(kernel_mode=kernel_mode, seq_tile=seq_tile,
                 length_mask=length_mask, dynamic_grid=dynamic_grid,
-                num_kv_splits=num_kv_splits, port_mix=port_mix)
+                num_kv_splits=num_kv_splits, mesh=mesh,
+                mesh_axis=mesh_axis, port_mix=port_mix)
     if cfg.family == "ssm":
         keys = ("tm_shift", "tm_state", "cm_shift")
         for i, p in enumerate(_unbind_layers(params["layers"],
@@ -409,7 +411,8 @@ def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
 
 def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                   *, kernel_mode: str = "reference", seq_tile: int = 128,
-                  dynamic_grid: bool = False, port_mix: str = "wr"
+                  dynamic_grid: bool = False, mesh=None,
+                  mesh_axis: str = "kv", port_mix: str = "wr"
                   ) -> tuple[PyTree, torch.Tensor]:
     """Process ONE fixed-size prompt chunk for a batch of sequences of a
     KV-cache family (the ssm and hybrid families raise, as in the JAX
@@ -435,7 +438,8 @@ def prefill_chunk(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
         x, k_i, v_i = B.transformer_block_prefill_chunk(
             p, x, offset, chunk_len, ck[i], cv[i],
             cfg, kernel_mode=kernel_mode, seq_tile=seq_tile,
-            dynamic_grid=dynamic_grid, port_mix=port_mix)
+            dynamic_grid=dynamic_grid, mesh=mesh, mesh_axis=mesh_axis,
+            port_mix=port_mix)
         _put(ck, (i,), k_i)
         _put(cv, (i,), v_i)
     last = torch.clamp(chunk_len.long() - 1, 0, c - 1)

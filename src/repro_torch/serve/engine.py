@@ -97,6 +97,26 @@ counts admissions that only proceeded because a slot was freed that same
 cycle — the open-loop bench (``benchmarks/serve_bench.py``) turns these
 into TTFT/per-token percentiles, goodput, and queue-depth curves.
 
+**Data-parallel KV** (``mesh`` with a ``kv`` axis, ``launch.mesh.
+make_kv_mesh``): the pool's word axis — its sequence/page axis — shards
+across the mesh's devices with page-aligned boundaries
+(``distributed.sharding.kv_shard_plan``; a page never straddles two
+devices) and page allocation turns device-aware: every request gets a HOME
+shard at admission and all its pages are carved from that shard, so its
+pool traffic and its kernel compute stay device-local. The engine stages
+decode and prefill-chunk batches in contiguous PER-DEVICE row blocks (each
+padded to a power-of-two rows-per-device, so the batch always divides
+across the mesh) and both fused kernels launch once per shard on its own
+row block (``kernels.ops._kv_shard_wrap``): each device's launch takes only
+its own sequences' lengths — a device serving short sequences traverses
+fewer tiles than one serving long sequences, which
+``decode_tile_reads_by_dev`` makes visible. ``PagedPool.cycle`` services
+each traversal on every shard (per-shard address windows, read lanes
+summed). Greedy decode stays token-identical to the single-device path at
+every device count, in both kernel modes — ``kernel_mode="reference"`` is
+the sharded oracle. One process drives every shard (the JAX package's
+single controller); a mesh may repeat a device, which runs the sharded path
+on one card or on the CPU.
 """
 from __future__ import annotations
 
@@ -262,7 +282,8 @@ class MultiPortEngine:
                  default_ttl_ticks: Optional[float] = None,
                  capacity_retry_limit: int = 16,
                  overload: Optional[OverloadController] = None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, mesh=None, kv_axis: str = "kv",
+                 device="cuda"):
         if cfg.family not in KV_FAMILIES:
             raise ValueError("engine currently serves KV-cache families")
         self.device = _device.resolve(device)
@@ -330,15 +351,25 @@ class MultiPortEngine:
         # dense read needs finite positions
         self._dead_row = -1 if self._fused_compute else 0
 
+        # data-parallel KV: shard the pool page-aligned across the mesh's
+        # kv axis and group staged batches by home device (see module doc)
+        if mesh is not None and kv_axis not in mesh.axis_names:
+            raise ValueError(
+                f"mesh {mesh.axis_names} has no {kv_axis!r} axis — build it "
+                f"with launch.mesh.make_kv_mesh")
+        self.n_kv_shards = int(mesh.shape[kv_axis]) if mesh is not None else 1
+
         # physical pool: word = one token's (K, V) across all layers, sized
-        # for the FULL grown slot table
+        # for the FULL grown slot table (the pool rounds up to a whole
+        # number of pages per shard — page-aligned shard boundaries)
         self._kv_dims = (cfg.n_layers, 2, cfg.n_kv_heads, cfg.head_dim_)
         word_width = int(np.prod(self._kv_dims))
         n_pages = self.max_slots * (-(-max_len // page_tokens))
         self.pool = PagedPool.create(
             n_pages=n_pages, page_tokens=page_tokens, word_width=word_width,
             dtype=torch.float32, use_kernel=(kernel_mode == "pallas"),
-            seq_tile=self.seq_tile, device=self.device)
+            seq_tile=self.seq_tile, mesh=mesh, kv_axis=kv_axis,
+            device=self.device)
 
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.slot_len: list[int] = [0] * slots      # tokens committed to pool
@@ -423,6 +454,11 @@ class MultiPortEngine:
         self.decode_critical_tiles = 0
         self.steady_decode_critical_tiles = 0
         self.prefill_tile_reads = 0
+        # per-device attribution of the same R-port tiles (device = the
+        # sequence's home shard == its kernel shard)
+        self.decode_tile_reads_by_dev = [0] * self.n_kv_shards
+        self.steady_decode_tile_reads_by_dev = [0] * self.n_kv_shards
+        self.prefill_tile_reads_by_dev = [0] * self.n_kv_shards
         self.port_log: list[tuple[int, ...]] = []
         # per-cycle schedule observability: which phases shared which pool
         # traversal (one tuple of phase-id tuples per cycle), how many
@@ -437,16 +473,21 @@ class MultiPortEngine:
         attn_mode = "multiport" if kernel_mode == "pallas" else "reference"
         pmix = self.compute_port_mix
         tile, dyn = self.seq_tile, self.dynamic_grid
+        # the fused kernels only shard when the mesh is non-trivial; the
+        # reference ignores the mesh (it is the sharded-pool oracle)
+        kmesh = mesh if self.n_kv_shards > 1 else None
         nsp = self.num_kv_splits
         self._decode = (
             lambda p, s, b: decode_step(p, cfg, s, b, kernel_mode=attn_mode,
                                         seq_tile=tile,
                                         length_mask=length_bound,
                                         dynamic_grid=dyn,
-                                        num_kv_splits=nsp, port_mix=pmix))
+                                        num_kv_splits=nsp, mesh=kmesh,
+                                        mesh_axis=kv_axis, port_mix=pmix))
         self._prefill_chunk = (
             lambda p, s, b: prefill_chunk(p, cfg, s, b, kernel_mode=attn_mode,
                                           seq_tile=tile, dynamic_grid=dyn,
+                                          mesh=kmesh, mesh_axis=kv_axis,
                                           port_mix=pmix))
 
     # ---- client API --------------------------------------------------------
@@ -588,6 +629,17 @@ class MultiPortEngine:
         return self.pool.traversals
 
     @property
+    def kv_tile_balance(self) -> float:
+        """Per-device steady-decode tile-read balance: max over devices
+        divided by the per-device mean (1.0 = perfectly balanced traffic).
+        Trivially 1.0 unsharded or before any steady decode."""
+        per = self.steady_decode_tile_reads_by_dev
+        total = sum(per)
+        if self.n_kv_shards == 1 or not total:
+            return 1.0
+        return max(per) / (total / self.n_kv_shards)
+
+    @property
     def prefix_stats(self) -> dict:
         """Prefix-cache observability: index lookups/hits at admission,
         tokens and pages adopted without recompute, and the copy-on-write
@@ -669,28 +721,52 @@ class MultiPortEngine:
         self.stage_lens_seen.add(got)
         return got
 
-    def _tiles_touched(self, needs: list, stage_s: int, bounded: bool,
-                       splits: int = 1) -> tuple[int, int, int]:
-        """(tiles the kernel's R port touches, ideal ceil-bound,
-        critical-path chain) for one staged batch of live lengths against a
-        ``stage_s``-long staging cache. Unbounded traversals touch every
-        grid tile. The CRITICAL chain is the step's latency proxy: batch
-        rows are grid-parallel, so a step takes as long as its longest
-        single dependent accumulation chain — the longest row's tile
-        count."""
+    def _group_rows(self, slots: list, *, base: int
+                    ) -> tuple[int, dict, list]:
+        """Per-HOME-DEVICE contiguous row blocks for a staged batch: device
+        ``d``'s sequences occupy rows ``[d*rpd, d*rpd + len(group_d))`` with
+        ``rpd`` a power of two >= the largest group (>= ``base // n`` so the
+        staged shape holds steady), so ``nb = rpd * n_kv_shards`` always
+        divides across the mesh and each shard's launch sees exactly its own
+        sequences. Returns (nb, slot->row, per-device slot groups)."""
+        n = self.n_kv_shards
+        groups: list[list] = [[] for _ in range(n)]
+        for i in slots:
+            groups[self.pool.assign_home(self.slot_req[i].rid)].append(i)
+        rpd = _bucket(max([len(g) for g in groups] + [1]),
+                      lo=max(1, base // n))
+        row_of = {i: d * rpd + j
+                  for d, g in enumerate(groups) for j, i in enumerate(g)}
+        return rpd * n, row_of, groups
+
+    def _tiles_touched(self, needs_by_dev: list, stage_s: int,
+                       bounded: bool, splits: int = 1
+                       ) -> tuple[int, int, list, int]:
+        """(tiles the kernel's R port touches, ideal ceil-bound, per-device
+        tile reads, critical-path chain) summed over the per-device
+        live-length groups against a ``stage_s``-long staging cache. The
+        dynamic grid is bounded PER DEVICE — each shard's traversal stops
+        at ITS OWN live-tile count. Unbounded traversals touch every grid
+        tile. The CRITICAL chain is the step's latency proxy: batch rows
+        (and devices) are grid-parallel, so a step takes as long as its
+        longest single dependent accumulation chain — the longest row's
+        tile count."""
         tile = fit_seq_tile(stage_s, self.seq_tile)
-        grid = stage_s // tile
-        if bounded and self.dynamic_grid and needs:
-            grid = min(grid, max(1, max(-(-n // tile) for n in needs)))
-        bound = sum(min(-(-n // tile), grid) for n in needs)
-        touched = bound if bounded else grid * len(needs)
-        critical = 0
-        for n in needs:
-            chain = min(-(-n // tile), grid) if bounded else grid
-            if splits > 1:
-                chain = -(-chain // splits) + 1       # + the combine
-            critical = max(critical, chain)
-        return touched, bound, critical
+        grid_full = stage_s // tile
+        per_dev, bound_total, critical = [], 0, 0
+        for needs in needs_by_dev:
+            grid = grid_full
+            if bounded and self.dynamic_grid and needs:
+                grid = min(grid, max(1, max(-(-n // tile) for n in needs)))
+            bound = sum(min(-(-n // tile), grid) for n in needs)
+            per_dev.append(bound if bounded else grid * len(needs))
+            bound_total += bound
+            for n in needs:
+                chain = min(-(-n // tile), grid) if bounded else grid
+                if splits > 1:
+                    chain = -(-chain // splits) + 1       # + the combine
+                critical = max(critical, chain)
+        return sum(per_dev), bound_total, per_dev, critical
 
     def _kv_words(self, cache_k, cache_v, slot: int, t0: int, t1: int
                   ) -> np.ndarray:
@@ -833,8 +909,7 @@ class MultiPortEngine:
         # invariant — only the per-cycle port-traffic shape moves)
         c = (self.overload.chunk_tokens(self.chunk_tokens)
              if self.overload is not None else self.chunk_tokens)
-        nb = _bucket(len(order), lo=1)
-        row_of = {s: j for j, s in enumerate(order)}
+        nb, row_of, groups = self._group_rows(order, base=1)
         need_of = {s: self._prefilling[s].consumed
                    + min(c, len(self.slot_req[s].prompt)
                          - self._prefilling[s].consumed) for s in order}
@@ -871,10 +946,12 @@ class MultiPortEngine:
         lg = logits.float().cpu().numpy()
         # the chunk kernel masks dead tiles per sequence; the reference
         # reads the whole staged cache densely per chunk
-        touched, _, _ = self._tiles_touched(
-            [need_of[s] for s in order], stage_s,
+        touched, _, per_dev, _ = self._tiles_touched(
+            [[need_of[s] for s in g] for g in groups], stage_s,
             bounded=self._fused_compute)
         self.prefill_tile_reads += touched
+        for d, t in enumerate(per_dev):
+            self.prefill_tile_reads_by_dev[d] += t
         self.prefill_chunks += len(order)
 
         streams = []
@@ -940,7 +1017,7 @@ class MultiPortEngine:
         return self.slot_len[slot] + (1 if slot in self._pending else 0)
 
     def _dispatch_decode(self, active: list, gathered: list
-                         ) -> tuple[int, int, int, _InFlight]:
+                         ) -> tuple[int, int, list, int, _InFlight]:
         """Launch one fused decode step for all active slots over staging
         caches assembled from the pool gather — WITHOUT waiting for the
         device: retirement (``_retire``) happens at the start of the next
@@ -950,13 +1027,23 @@ class MultiPortEngine:
         the next cycle's fill never touches the buffer this cycle's
         host-to-device copy was made from.
 
+        Under data-parallel KV the batch rows are grouped into contiguous
+        per-home-device blocks so each shard's kernel launch lines up with
+        the pool's page placement.
+
         Returns (R-port tiles touched, ideal per-slot ceil tile bound,
-        critical-path chain, the in-flight handle)
+        per-device tile reads, critical-path chain, the in-flight handle)
         — tile accounting is pure host arithmetic over live lengths, so it
         needs no results."""
         nl, _, hkv, hd = self._kv_dims
-        nb = _bucket(len(self.slot_req), lo=self._init_slots)
-        row_of = {i: i for i in active}
+        if self.n_kv_shards == 1:
+            nb = _bucket(len(self.slot_req), lo=self._init_slots)
+            row_of = {i: i for i in active}
+            groups = [list(active)]
+        else:
+            nb, row_of, groups = self._group_rows(
+                active, base=_bucket(len(self.slot_req),
+                                     lo=self._init_slots))
         need_of = {i: rows.shape[0] + 1                 # post-append lens
                    for i, rows in zip(active, gathered)}
         stage_s = self._stage_len(max(need_of.values(), default=1))
@@ -989,10 +1076,10 @@ class MultiPortEngine:
                              state=st, logits=logits,
                              rids={i: self.slot_req[i].rid for i in active})
         bounded = self._fused_compute and self.length_bound
-        tiles, bound, crit = self._tiles_touched(
-            [need_of[i] for i in active], stage_s, bounded=bounded,
-            splits=self.num_kv_splits)
-        return tiles, bound, crit, inflight
+        tiles, bound, per_dev, crit = self._tiles_touched(
+            [[need_of[i] for i in g] for g in groups], stage_s,
+            bounded=bounded, splits=self.num_kv_splits)
+        return tiles, bound, per_dev, crit, inflight
 
     def _retire(self, inf: _InFlight) -> None:
         """Force an in-flight decode cycle's device results and fold them
@@ -1041,6 +1128,7 @@ class MultiPortEngine:
                          else 0 for i in range(len(self.slot_req))],
                 "pool_utilization": self.pool.utilization,
                 "pool_traversals": self.pool.traversals,
+                "kv_shards": self.n_kv_shards,
                 "shed": len(self.shed),
                 "overload_state": (self.overload.state
                                    if self.overload is not None else None)}
@@ -1219,17 +1307,21 @@ class MultiPortEngine:
         if active:
             self.decode_steps += 1
             self.decode_traversals += dt
-            tiles, bound, crit, inflight = self._dispatch_decode(
+            tiles, bound, per_dev, crit, inflight = self._dispatch_decode(
                 active, gathered)
             self._inflight = inflight
             self.decode_tile_reads += tiles
             self.decode_critical_tiles += crit
+            for d, t in enumerate(per_dev):
+                self.decode_tile_reads_by_dev[d] += t
             if appends:
                 self.steady_decode_steps += 1
                 self.steady_decode_traversals += dt
                 self.steady_decode_tile_reads += tiles
                 self.steady_decode_tile_bound += bound
                 self.steady_decode_critical_tiles += crit
+                for d, t in enumerate(per_dev):
+                    self.steady_decode_tile_reads_by_dev[d] += t
 
         self.cycles += 1
         self.port_log.append(slots)

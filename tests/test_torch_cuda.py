@@ -1062,3 +1062,268 @@ def test_zamba2_decode_step_on_card_matches_cpu(cuda_device):
                                  T.leaves_with_path(st_cpu), strict=True):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4,
                                    msg=str(path))
+
+
+# ---- the paper's baselines, the tensor encoder, data-parallel KV -----------
+
+def _port_configs(rng):
+    """Every 1-4-port enable set x R/W role mix, each under a seeded
+    priority permutation."""
+    import itertools
+    perms = list(itertools.permutations(range(4)))
+    out = []
+    for m in range(1, 16):
+        enabled = tuple(bool(m >> i & 1) for i in range(4))
+        on = [i for i in range(4) if enabled[i]]
+        for bits in range(1 << len(on)):
+            roles = [READ] * 4
+            for k, p in enumerate(on):
+                roles[p] = WRITE if bits >> k & 1 else READ
+            out.append(PortConfig(enabled=enabled, roles=tuple(roles),
+                                  priority=perms[int(rng.integers(24))]))
+    return out
+
+
+@pytest.mark.cuda
+def test_baselines_equal_multiport_step_on_card(rng, cuda_device):
+    """SinglePortNPass, ReplicatedReads(3) and XorCoded on the card ==
+    ``multiport.step`` and the pool-step kernel, storage and reads
+    bit-exact, over every port mix with addresses that repeat; the XOR
+    parity stays the sum of its banks (1e-5)."""
+    from repro_torch.core.baselines import (ReplicatedReads, SinglePortNPass,
+                                            XorCoded)
+    spec = MemorySpec(num_words=64, word_width=300, num_banks=8)
+    bases = (SinglePortNPass(spec), ReplicatedReads(spec, 3), XorCoded(spec))
+    for cfg in _port_configs(rng):
+        reqs = [PortRequest(
+            addr=_ints(cuda_device, rng.integers(0, 64, 96)),
+            data=_normal(rng, cuda_device, "f32", 96, 300),
+            mask=torch.from_numpy(rng.random(96) > 0.3).to(cuda_device))
+            for _ in range(4)]
+        storage = _normal(rng, cuda_device, "f32", 64, 300)
+        want, want_r = step(spec, cfg, storage, reqs)
+        got_k, reads_k = ops.multiport_step(spec, cfg, storage.clone(), reqs)
+        assert torch.equal(got_k, want)
+        single = bases[0].step(cfg, storage, reqs)
+        rep = bases[1].step(cfg, storage.unsqueeze(0).repeat(3, 1, 1), reqs)
+        data = storage.reshape(8, 8, 300).clone()
+        (xd, xp), xr = bases[2].step(cfg, (data, data.sum(0)), reqs)
+        assert torch.equal(single[0], want)
+        assert all(torch.equal(r, want) for r in rep[0])
+        assert torch.equal(xd.reshape(64, 300), want)
+        torch.testing.assert_close(xp, xd.sum(0), atol=1e-5, rtol=1e-5)
+        for p in range(4):
+            for got in (reads_k[p], single[1][p], rep[1][p], xr[p]):
+                assert torch.equal(got, want_r[p])
+
+
+@pytest.mark.cuda
+def test_priority_encoder_and_walk_in_a_cuda_graph(cuda_device):
+    """encode_dynamic, next_port_dynamic (the walk from the reset state)
+    and walk_order_dynamic on CUDA tensors, captured in ONE CUDA graph
+    (which fails on any host sync), equal their static counterparts for
+    every enable mask under every priority permutation."""
+    import itertools
+
+    from repro_torch.core import fsm, priority as prio
+    perms = list(itertools.permutations(range(4)))
+    masks = [tuple(bool(m >> i & 1) for i in range(4)) for m in range(1, 16)]
+    en = torch.tensor(masks, device=cuda_device)
+    pr = torch.tensor(perms, dtype=torch.int32, device=cuda_device)
+
+    def run():
+        out = []
+        for i in range(len(masks)):
+            for j in range(len(perms)):
+                cur = fsm.reset_state(en[i], pr[j])
+                walk = [cur]
+                for _ in range(4):
+                    cur = fsm.transition(cur, en[i], pr[j])
+                    walk.append(cur)
+                ports, active = fsm.walk_order_dynamic(en[i], pr[j])
+                out.append(torch.cat([torch.stack(walk), ports,
+                                      active.to(torch.int32)]))
+        return torch.stack(out)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                           # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    graph.replay()
+    got = got.cpu()
+    for i, enabled in enumerate(masks):
+        for j, priority in enumerate(perms):
+            row = got[i * len(perms) + j].tolist()
+            order = prio.order_static(enabled, priority)
+            n = len(order)
+            walk = [order[k % n] for k in range(5)]
+            assert row[:5] == walk
+            assert row[0] == prio.encode_static(enabled, priority)
+            assert tuple(row[5:5 + n]) == order
+            assert row[9:] == [1] * n + [0] * (4 - n)
+
+
+def _pool_session(pool, rng):
+    """Prefills, appends with reads in both hazard orders, a scrub; every
+    read and the joined storage after each traversal."""
+    w = pool.io_width
+    vec = lambda n: rng.normal(size=(n, w)).astype(np.float32)  # noqa: E731
+    got = []
+
+    def keep(res):
+        if res["read"] is not None:
+            got.extend(res["read"] if isinstance(res["read"], list)
+                       else [res["read"]])
+        got.append((torch.cat([st.to(pool.device) for st in pool.storage])
+                    if pool.sharded else pool.storage).clone())
+    keep(pool.cycle(prefill=[{"seq": s, "vectors": vec(n)}
+                             for s, n in ((1, 40), (2, 17), (3, 9))]))
+    for prio in ((1, 0, 3, 2), (0, 3, 2, 1)):
+        keep(pool.cycle(append=[{"seq": 1, "vectors": vec(1)},
+                                {"seq": 3, "vectors": vec(1)}],
+                        read=[{"seq": 1, "positions": np.arange(41)},
+                              {"seq": 2, "positions": np.arange(17)}],
+                        priority=prio))
+    keep(pool.cycle(scrub=pool.free(2),
+                    read={"seq": 3, "positions": np.arange(10)}))
+    return got
+
+
+@pytest.mark.cuda
+def test_sharded_pool_step_on_four_virtual_shards_is_bit_exact(cuda_device):
+    """The pool sharded over 4 virtual shards of the card (one storage
+    tensor and one pool-step launch per shard a traversal) == the
+    unsharded pool with the same control plane, every read and the
+    storage after every traversal bit-exact; 4 launches a traversal."""
+    from repro_torch.launch.mesh import make_kv_mesh
+    from repro_torch.memory.paged_kv import PagedPool
+    kw = dict(n_pages=64, page_tokens=8, word_width=11264, kv_shards=4,
+              use_kernel=True, device=cuda_device)
+    flat = PagedPool.create(**kw)
+    mesh = make_kv_mesh(4, devices=[cuda_device] * 4)
+    sharded = PagedPool.create(mesh=mesh, **kw)
+    a = _pool_session(flat, np.random.default_rng(0))
+    before = launch_counts()["multiport_sram_step"]
+    b = _pool_session(sharded, np.random.default_rng(0))
+    assert launch_counts()["multiport_sram_step"] - before == \
+        4 * sharded.traversals
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 8])
+def test_sharded_decode_kernels_on_four_virtual_shards(rng, cuda_device,
+                                                       splits):
+    """B1 (or B4a + B4b) once per shard on its row block: caches and tile
+    counts bit-exact with one launch over all rows, outputs within 1e-5
+    (a shard's fewer rows may take another cluster size); launches = 4."""
+    from repro_torch.distributed.sharding import shard_apply
+    from repro_torch.launch.mesh import make_kv_mesh
+    b, s, hkv, g, d = 8, 2048, 4, 8, 64
+    lens = _ints(cuda_device, [1500, 3, -1, 2047, 640, 64, 1999, 0])
+    args = (_normal(rng, cuda_device, "f32", b, hkv * g, d),
+            _normal(rng, cuda_device, "f32", b, s, hkv, d),
+            _normal(rng, cuda_device, "f32", b, s, hkv, d),
+            _normal(rng, cuda_device, "f32", b, hkv, d),
+            _normal(rng, cuda_device, "f32", b, hkv, d), lens)
+    ref = tuple(a.clone() for a in args)
+    kw = dict(seq_tile=64, dynamic_grid=True, num_kv_splits=splits,
+              return_tiles=True)
+    fn = lambda *a: kvmp.fused_append_attend(*a, **kw)  # noqa: E731
+    before = launch_counts()
+    o, ck, cv, t = shard_apply(make_kv_mesh(4, devices=[cuda_device] * 4),
+                               fn, *args)
+    ran = {k: v - before[k] for k, v in launch_counts().items()
+           if v != before[k]}
+    assert ran == ({"kv_decode_append_attend": 4} if splits == 1 else
+                   {"kv_decode_split_partial": 4,
+                    "kv_decode_split_combine": 4})
+    o1, ck1, cv1, t1 = fn(*ref)
+    assert ck is args[1] and torch.equal(ck, ck1) and torch.equal(cv, cv1)
+    assert torch.equal(t, t1)
+    torch.testing.assert_close(o, o1, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_on_two_cards(rng, cuda_device):
+    """The mesh over two real cards: B1 once per card on its row block
+    (each launch with its card current) and the pool sharded over both,
+    equal to one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.distributed.sharding import shard_apply
+    from repro_torch.launch.mesh import make_kv_mesh
+    from repro_torch.memory.paged_kv import PagedPool
+    mesh = make_kv_mesh(2)
+    b, s, hkv, g, d = 4, 256, 4, 8, 64
+    args = (_normal(rng, cuda_device, "f32", b, hkv * g, d),
+            _normal(rng, cuda_device, "f32", b, s, hkv, d),
+            _normal(rng, cuda_device, "f32", b, s, hkv, d),
+            _normal(rng, cuda_device, "f32", b, hkv, d),
+            _normal(rng, cuda_device, "f32", b, hkv, d),
+            _ints(cuda_device, [200, 3, -1, 255]))
+    ref = tuple(a.clone() for a in args)
+    fn = lambda *a: kvmp.fused_append_attend(  # noqa: E731
+        *a, seq_tile=64, dynamic_grid=True, return_tiles=True)
+    o, ck, cv, t = shard_apply(mesh, fn, *args)
+    o1, ck1, cv1, t1 = fn(*ref)
+    assert torch.equal(ck, ck1) and torch.equal(cv, cv1)
+    assert torch.equal(t, t1)
+    torch.testing.assert_close(o, o1, atol=F32_TOL, rtol=F32_TOL)
+    kw = dict(n_pages=16, page_tokens=8, word_width=512, kv_shards=2,
+              use_kernel=True, device=cuda_device)
+    sharded = PagedPool.create(mesh=mesh, **kw)
+    assert [st.device for st in sharded.storage] == list(mesh.devices)
+    a = _pool_session(PagedPool.create(**kw), np.random.default_rng(0))
+    b = _pool_session(sharded, np.random.default_rng(0))
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y.to(x.device))
+
+
+@pytest.mark.cuda
+def test_launcher_kv_shards_over_the_visible_cards(cuda_device):
+    """``--kv-shards N`` over the N cards of the host, through the
+    launcher: one storage shard per card, each kernel launched once per
+    card, and the greedy tokens of one card (f32)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.launch import serve
+    argv = ["--dtype", "float32", "--requests", "4", "--max-new", "4"]
+    flat = serve.main(argv)
+    before = launch_counts()
+    eng = serve.main(argv + ["--kv-shards", str(n)])
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    assert [st.device for st in eng.pool.storage] == \
+        [torch.device("cuda", i) for i in range(n)]
+    layers = eng.cfg.n_layers
+    assert ran["kv_decode_append_attend"] == layers * eng.decode_steps * n
+    assert ran["kv_chunk_append_attend"] == layers * eng.prefill_steps * n
+    assert ran["multiport_sram_step"] == eng.pool.traversals * n
+    assert {r.rid: r.generated for r in eng.finished} == \
+        {r.rid: r.generated for r in flat.finished}
+
+
+@pytest.mark.cuda
+def test_bmm_f32_on_card_matches_the_cast_product(rng, cuda_device):
+    """``layers.bmm_f32`` of bf16 operands on the card (no f32 copies)
+    against the product of their f32 copies, values and gradients (the
+    products of bf16 values are exact in f32; only the summation order
+    differs)."""
+    from repro_torch.models.layers import bmm_f32
+    a = _normal(rng, cuda_device, "bf16", 6, 96, 64).requires_grad_()
+    b = _normal(rng, cuda_device, "bf16", 6, 64, 80).requires_grad_()
+    got = bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    want = torch.bmm(a.float(), b.float())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    g = _normal(rng, cuda_device, "f32", 6, 96, 80)
+    ga, gb = torch.autograd.grad(got, (a, b), g)
+    wa, wb = torch.autograd.grad(want, (a, b), g)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    assert torch.equal(ga, wa) and torch.equal(gb, wb)

@@ -144,9 +144,7 @@ def test_prefill_then_decode_matches_forward(bridged, ids, mode):
 @pytest.mark.parametrize("arch,reduced", [("rwkv6-3b", True),
                                           ("zamba2-7b", True),
                                           ("zamba2-7b", False)])
-def test_non_dense_families_raise_naming_a9(arch, reduced):
-    # The name is kept from when these families were refused; the test now
-    # checks that they run.
+def test_ssm_and_hybrid_families_run_through_the_entry_points(arch, reduced):
     """The ssm and hybrid families (ROADMAP A9b, ported): ``prefill_chunk``
     raises the JAX package's "chunked prefill serves KV-cache families"
     before any work, and ``forward``, ``prefill`` and ``decode_step`` run
@@ -172,9 +170,7 @@ def test_non_dense_families_raise_naming_a9(arch, reduced):
         assert bool(torch.isfinite(lg2).all())
 
 
-def test_mrope_positions_raise_naming_a9():
-    # The name is kept from when this call was refused; the test now checks
-    # that it matches JAX.
+def test_hybrid_forward_with_mrope_positions_matches_jax():
     """The hybrid family's ``forward`` with explicit M-RoPE (t, h, w)
     positions matches the JAX package's (the shared block rotates by
     them; M-RoPE itself is held in ``test_torch_families.py``)."""

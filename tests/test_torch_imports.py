@@ -87,15 +87,6 @@ def test_launcher_refuses_what_the_engine_cannot_serve(arch, match):
         serve.arch_config(serve.parse_args(["--arch", arch]))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--kv-shards", "2"], "A8"),
-])
-def test_launcher_names_the_roadmap_item_of_unported_flags(argv, item):
-    from repro_torch.launch import serve
-    with pytest.raises(SystemExit, match=item):
-        serve.parse_args(argv)
-
-
 @pytest.mark.parametrize("argv,key,value", [
     (["--arrival-rate", "0.5"], "arrival_rate", 0.5),
     (["--trace", "t.jsonl"], "trace", "t.jsonl"),
@@ -103,6 +94,7 @@ def test_launcher_names_the_roadmap_item_of_unported_flags(argv, item):
     (["--slo", "10"], "slo", 10.0),
     (["--num-kv-splits", "4"], "num_kv_splits", 4),
     (["--dtype", "float32"], "dtype", "float32"),
+    (["--kv-shards", "2"], "kv_shards", 2),
 ])
 def test_launcher_accepts_the_ported_flags(argv, key, value):
     from repro_torch.launch import serve
@@ -110,6 +102,20 @@ def test_launcher_accepts_the_ported_flags(argv, key, value):
     assert getattr(args, key) == value
     assert serve.open_loop(args) == ("--trace" in argv
                                      or "--arrival-rate" in argv)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_launcher_kv_shards_beyond_the_visible_devices_exits(device):
+    """``main`` builds the kv mesh over the visible devices of
+    ``--device``'s type (the CPU counts as one) before any parameter is
+    drawn; more shards than those exit with JAX's device-count message."""
+    import torch
+
+    from repro_torch.launch import serve
+    n = 1 if device == "cpu" else torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=f"--kv-shards: kv mesh needs 8 "
+                                         f"devices but only {n} are visible"):
+        serve.main(["--kv-shards", "8", "--device", device])
 
 
 @pytest.mark.parametrize("argv,match", [
