@@ -136,10 +136,29 @@ Phases (any failure exits non-zero before the final line):
    the unsharded calls of this run;
    in f32 (TF32 off) the 4-shard greedy tokens equal phase 6's 1-shard
    tokens;
-8. time the launch floor (an empty kernel launched through ctypes like
+8. sharded training over a data x model mesh (``launch.train``'s
+   ``build_on_mesh``: DTensors placed by the JAX package's rules), with
+   ranks that share the card (``launch.local_ranks``, one process each,
+   the host-staged gloo backend of ``distributed/hoststaged.py``):
+8a. 4 ranks: every collective DTensor issues, plain and functional, on
+   CUDA tensors (f32 and int8 all-reduce, all-gather, reduce-scatter,
+   all-to-all) == its local reduction;
+8b. tinyllama-1.1b at its published widths (bf16, AdamW, batch 8 x 1024)
+   over (data 2, model 2), 4 ranks: 3 steps, the first step's ce within
+   4e-2 of phase 7f's one-device first step; each step's time beside
+   the recorded and this run's one-device step, each rank's peak memory and
+   state bytes, and each collective's bytes a step;
+8c. f32 at 2 of the 22 layers, TF32 off, 4 ranks: the sharded step on
+   (data 2, model 2) == one device (ce rtol 1e-5, ``lm_head/w`` atol 2e-5
+   / rtol 1e-4, the JAX multidevice test's tolerances); the compressed
+   step (int8_ef, 2 pods) on (pod 2, data 1, model 2) == one device's,
+   with the int8 all-reduce across the pods counted; the state saved on
+   (2, 2), restored onto (data 2, model 1) by 2 ranks, takes the next
+   step with the ce of the run that goes on at (2, 2) (rtol 1e-5);
+9. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
-9. print the kernel table as JSON, the card's name and power limit, and
+10. print the kernel table as JSON, the card's name and power limit, and
    finally ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1860,6 +1879,9 @@ OTHER_OPT_STEPS = 2             # adamw8bit and adafactor each
 # (PERF.md §5, NVIDIA H100 80GB HBM3, 700.00 W)
 BEFORE_BF16_PRODUCTS = ("0.869 s a step, copy_ 31.7 % and bmm 17.2 % of "
                         "its kernels' time")
+# the recorded one-device AdamW step at batch 8 x 1024 (PERF.md §5,
+# measured on one NVIDIA H100 80GB HBM3, 700.00 W): beside phase 8b's
+RECORDED_STEP_S = 0.7077
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 4, 256
 MICRO_TOL = 1e-5                # microbatches == one batch (ce rel; grads
                                 # of each leaf's largest |value|)
@@ -1933,14 +1955,16 @@ def _profile_step(step, state, batch, card: str) -> None:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name}")
 
 
-def train_full_width(card: str) -> None:
+def train_full_width(card: str) -> dict:
     """tinyllama-1.1b at its published widths (22 layers, d 2048, 32/4
     heads, d_ff 5632, vocab 32000, bf16), seed-0 weights, the chain task,
     batch 8 x seq 1024, through ``launch.train``'s parse and build: 8 AdamW
     steps (ce, grad_norm, lr and the host time of each step around
     ``torch.cuda.synchronize()``), tokens/s, model TFLOP/s against the bf16
     peak and peak memory; then adamw8bit and adafactor 2 steps each with
-    their state bytes. Every launch counter stays 0."""
+    their state bytes. Every launch counter stays 0. Returns the first
+    AdamW step's ce and the steady step's seconds (phase 8b's one-device
+    reference)."""
     from repro_torch.kernels import reset_launch_counts
     for opt, steps in (("adamw", TRAIN_STEPS),
                        ("adamw8bit", OTHER_OPT_STEPS),
@@ -1978,6 +2002,7 @@ def train_full_width(card: str) -> None:
         tokens = args.batch * args.seq
         if opt == "adamw":
             steady = statistics.median(times[1:])
+            one_device = {"ce": recs[0]["ce"], "step_s": steady}
             model, recompute = _train_flops(cfg, args.batch, args.seq)
             tflops = model / steady / 1e12
             print(f"train [{cfg.arch_id}, {cfg.n_layers} layers, d "
@@ -2007,6 +2032,7 @@ def train_full_width(card: str) -> None:
                   f"{_gib(peak)}; launch counters all 0 ({card})")
         del state, s, batch, metrics
     torch.cuda.empty_cache()
+    return one_device
 
 
 def _f32_cut(n_layers: int):
@@ -2979,6 +3005,272 @@ def kv_mesh_paths(dev, unsharded: dict, f32_tokens: dict) -> dict:
     return paths, errs
 
 
+# ---- phase 8: sharded training over a data x model mesh (ROADMAP A8b) ----
+
+MESH_TIMEOUT = 300              # seconds: each local job of ranks
+SHARDED_STEPS = 3               # full-width sharded AdamW steps
+# the JAX multidevice test's tolerances (tests/distributed/test_multidevice.py)
+MESH_CE_RTOL = 1e-5
+MESH_W_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _mesh_job(fn: str, world: int, module: str = "chip_smoke",
+              **kwargs) -> list:
+    """``fn`` (of this file unless ``module`` says) on ``world`` ranks that
+    share the card (``launch.local_ranks``: one process each, the
+    host-staged backend); each rank's result, in rank order."""
+    from repro_torch.launch import local_ranks
+    return local_ranks.run(f"{module}:{fn}", world, device="cuda",
+                           kwargs=kwargs, timeout=MESH_TIMEOUT,
+                           path=[str(ROOT)],
+                           workdir=str(ROOT / "build" / "chip_smoke" /
+                                       "ranks" / fn))
+
+
+def _on_mesh(argv: list, mesh, cfg_edit=None):
+    """``launch.train``'s parse and ``build_on_mesh`` (every rank calls
+    it), the config edited by ``cfg_edit`` when given."""
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    orig = train.arch_config
+    if cfg_edit is not None:
+        train.arch_config = lambda a: cfg_edit(orig(a))
+    try:
+        return args, train.build_on_mesh(args, mesh)
+    finally:
+        train.arch_config = orig
+
+
+def rank_full_width(argv: list, steps: int) -> dict:
+    """8b, on each rank: ``launch.train.build_on_mesh`` over (data 2,
+    model 2) and ``steps`` AdamW steps; each step's ce, grad_norm, host
+    time (all ranks start it together, it ends at the card's sync) and
+    the collectives this rank staged; the rank's peak memory and state
+    bytes."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.distributed import hoststaged
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    _, s = _on_mesh(argv, mesh)
+    state, s.state = s.state, None
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    recs = []
+    for i in range(steps):
+        batch = s.loader.get(i)
+        dist.barrier()
+        hoststaged.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = s.step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = _record(metrics)
+        recs.append({"ce": rec["ce"], "grad_norm": rec["grad_norm"], "s": dt,
+                     "staged": dict(hoststaged.STATS)})
+    local = sum(x.to_local().numel() * x.element_size()
+                for x in T.leaves(state))
+    placed = {k: str(v.placements) for k, v in (
+        ("lm_head/w", state["params"]["lm_head"]["w"]),
+        ("m lm_head/w", state["opt"]["m"]["lm_head"]["w"]),
+        ("wk", state["params"]["layers"]["attn"]["wk"]["w"]))}
+    return {"steps": recs, "init_s": init_s,
+            "peak": torch.cuda.max_memory_allocated(), "state_bytes": local,
+            "placements": placed}
+
+
+def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
+    """8c, on each of 4 ranks, f32 at 2 layers, TF32 off: (1) one sharded
+    step on (data 2, model 2) against the same step on one device (rank 0
+    computes it): ce at rtol 1e-5, ``lm_head/w`` at 2e-5 / 1e-4; the state
+    is saved and a second step taken (the elastic run's reference); (2)
+    the compressed step (int8_ef, 2 pods) on (pod 2, data 1, model 2)
+    against one device's, with the int8 all-reduce across the pods
+    counted."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import hoststaged
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {}
+    for what, shape, axes, extra in (
+            ("sharded", (2, 2), ("data", "model"), []),
+            ("compressed", (2, 1, 2), ("pod", "data", "model"),
+             ["--multi-pod", "--compress-grads"])):
+        mesh = make_mesh(shape, axes)
+        args, s = _on_mesh(argv + extra, mesh, _f32_cut(F32_LAYERS))
+        hoststaged.reset_stats()
+        state, m = s.step(s.state, s.loader.get(0))
+        staged = dict(hoststaged.STATS)
+        w = state["params"]["lm_head"]["w"].full_tensor()
+        row = {"ce": float(m["ce"]), "staged": staged}
+        if rank == 0:
+            orig = train.arch_config
+            train.arch_config = lambda a: _f32_cut(F32_LAYERS)(orig(a))
+            try:
+                one = train.build(args)
+            finally:
+                train.arch_config = orig
+            s1, m1 = one.step(one.state, one.loader.get(0))
+            row["ce_one"] = float(m1["ce"])
+            row["ce_diff"] = _agree(torch.tensor(row["ce"]),
+                                    torch.tensor(row["ce_one"]), 0.0,
+                                    MESH_CE_RTOL, f"{what} ce")
+            row["w_diff"] = _agree(w, s1["params"]["lm_head"]["w"],
+                                   MESH_W_TOL["atol"], MESH_W_TOL["rtol"],
+                                   f"{what} lm_head/w")
+            del one, s1
+        if what == "sharded":
+            ckpt.save(ckpt_dir, 0, state)
+            _, m2 = s.step(state, s.loader.get(1))
+            row["ce_next"] = float(m2["ce"])
+        out[what] = row
+        del state, s
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def rank_elastic(argv: list, ckpt_dir: str) -> dict:
+    """8c (3), on each of 2 ranks: the checkpoint saved on (data 2, model
+    2) restored onto (data 2, model 1) by the JAX package's rules, and the
+    next step's ce."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((2, 1), ("data", "model"))
+    args = train.parse_args(argv)
+    cfg = _f32_cut(F32_LAYERS)(train.arch_config(args))
+    tcfg = train.train_config(args)
+    rules = shd.Rules.for_mesh(mesh)
+    shapes = SP.train_state_shapes(cfg, tcfg)
+    specs = SP.train_state_pspecs(cfg, mesh, rules, shapes)
+    state, _ = ckpt.restore(ckpt_dir, shapes, shardings=shd.named(mesh, specs))
+    loader = ShardedLoader(cfg, DataConfig(seed=0), batch=args.batch,
+                           seq=args.seq, device="cuda",
+                           shardings=shd.named(mesh, shd.batch_specs(
+                               cfg, mesh, rules, global_batch=args.batch)))
+    from repro_torch.train.train_step import make_train_step
+    _, m = make_train_step(cfg, tcfg)(state, loader.get(1))
+    return {"ce": float(m["ce"]),
+            "placement": str(state["params"]["lm_head"]["w"].placements)}
+
+
+def _staged_line(staged: dict) -> str:
+    return ", ".join(f"{k} x{n} {b / 2**20:.1f} MiB"
+                     for k, (n, b) in sorted(staged.items()))
+
+
+def sharded_training(card: str, one_device: dict) -> None:
+    """Phase 8: 8a the collective probe, 8b tinyllama-1.1b at its
+    published widths over (data 2, model 2) with 4 ranks on the card,
+    8c the f32 identities (sharded == one device, the compressed step's
+    int8 pod all-reduce, the elastic restart on 2 ranks)."""
+    import gc
+    import shutil
+    n = 4
+    # the ranks share the card with this process: free what earlier
+    # phases left unreferenced
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh: this process holds {_gib(torch.cuda.memory_allocated())} "
+          f"allocated, {_gib(torch.cuda.memory_reserved())} reserved as the "
+          f"ranks start ({card})")
+    t0 = time.perf_counter()
+    probe = _mesh_job("probe", n, module="repro_torch.distributed.hoststaged")
+    bad = {r: [k for k, v in res.items() if not v]
+           for r, res in enumerate(probe)}
+    if any(bad.values()):
+        raise AssertionError(f"collectives on CUDA tensors disagree with "
+                             f"their local reductions: {bad}")
+    print(f"mesh 8a [{n} ranks on the card, host-staged gloo]: "
+          f"{len(probe[0])} collectives on CUDA tensors == their local "
+          f"reductions on every rank ({', '.join(probe[0])}) "
+          f"({time.perf_counter() - t0:.1f} s) ({card})")
+
+    t0 = time.perf_counter()
+    argv = TRAIN + ["--steps", str(SHARDED_STEPS)]
+    ranks = _mesh_job("rank_full_width", n, argv=argv, steps=SHARDED_STEPS)
+    took = time.perf_counter() - t0
+    r0 = ranks[0]
+    ce = r0["steps"][0]["ce"]
+    if abs(ce - one_device["ce"]) > BF16_TOL:
+        raise AssertionError(f"sharded full-width step 1 ce {ce} != one "
+                             f"device's {one_device['ce']} (limit {BF16_TOL})")
+    if any(abs(r["steps"][i]["ce"] - r0["steps"][i]["ce"]) > 0
+           for r in ranks for i in range(SHARDED_STEPS)):
+        raise AssertionError("ranks disagree on the replicated ce")
+    times = [rec["s"] for rec in r0["steps"]]
+    steady = statistics.median(times[1:])
+    for i, rec in enumerate(r0["steps"]):
+        print(f"mesh 8b [tinyllama-1.1b, published widths, bf16, AdamW, "
+              f"batch 8 x 1024, data 2 x model 2, {n} ranks on the card] "
+              f"step {i}: ce {rec['ce']:.4f}, grad_norm "
+              f"{rec['grad_norm']:.4f}, {rec['s']:.3f} s; rank 0 staged "
+              f"{_staged_line(rec['staged'])} ({card})")
+    per_rank = [sum(b for _, b in r["steps"][-1]["staged"].values())
+                for r in ranks]
+    print(f"mesh 8b: step 1 ce {ce:.6f} vs one device {one_device['ce']:.6f}"
+          f" (|diff| {abs(ce - one_device['ce']):.3g}, limit {BF16_TOL}); "
+          f"median of steps 1-{SHARDED_STEPS - 1} {steady:.3f} s against "
+          f"the recorded one-device {RECORDED_STEP_S} s and this run's "
+          f"{one_device['step_s']:.4f} s "
+          f"(x{steady / one_device['step_s']:.1f})"
+          f"; peak memory by rank "
+          f"{', '.join(_gib(r['peak']) for r in ranks)}; state bytes by rank "
+          f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; staged "
+          f"bytes a step by rank "
+          f"{', '.join(f'{b / 2**30:.2f} GiB' for b in per_rank)}"
+          f"; init {r0['init_s']:.1f} s; placements {r0['placements']}; job "
+          f"{took:.1f} s ({card})")
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = TRAIN_ARCH + ["--batch", str(TRAIN_F32_BATCH), "--seq",
+                         str(TRAIN_F32_SEQ), "--steps", "2"]
+    ident = _mesh_job("rank_f32_identities", n, argv=argv,
+                      ckpt_dir=str(root))[0]
+    sh, cp = ident["sharded"], ident["compressed"]
+    int8 = {k: v for k, v in cp["staged"].items()
+            if k.startswith("all_reduce int8 x2")}
+    if not int8:
+        raise AssertionError(f"compressed step: no int8 all-reduce across "
+                             f"the 2 pods; staged {cp['staged']}")
+    print(f"mesh 8c [f32, {F32_LAYERS} of 22 layers, TF32 off, batch "
+          f"{TRAIN_F32_BATCH} x {TRAIN_F32_SEQ}]: sharded (data 2, model 2) "
+          f"== one device: ce {sh['ce']:.7f} / {sh['ce_one']:.7f} (|diff| "
+          f"{sh['ce_diff']:.3g}, rtol {MESH_CE_RTOL}), lm_head/w |diff| "
+          f"{sh['w_diff']:.3g} ({MESH_W_TOL}); compressed int8_ef (pod 2, "
+          f"data 1, model 2) == one device's 2-pod step: ce {cp['ce']:.7f} / "
+          f"{cp['ce_one']:.7f} (|diff| {cp['ce_diff']:.3g}), lm_head/w "
+          f"|diff| {cp['w_diff']:.3g}; the pods' int8 all-reduce "
+          f"{_staged_line(int8)} of rank 0's {_staged_line(cp['staged'])} "
+          f"({card})")
+    elastic = _mesh_job("rank_elastic", 2, argv=argv, ckpt_dir=str(root))
+    d = _agree(torch.tensor(elastic[0]["ce"]), torch.tensor(sh["ce_next"]),
+               0.0, MESH_CE_RTOL, "elastic restart ce")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"mesh 8c elastic: saved on (data 2, model 2) by 4 ranks, "
+          f"restored onto (data 2, model 1) by 2 ranks (lm_head/w "
+          f"{elastic[0]['placement']}): next step ce {elastic[0]['ce']:.7f} "
+          f"vs {sh['ce_next']:.7f} going on at (2, 2) (|diff| {d:.3g}, rtol "
+          f"{MESH_CE_RTOL}); 8c in {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3154,9 +3446,11 @@ def main() -> int:
         errs[name]["kv_mesh"] = e
     torch.cuda.empty_cache()
 
-    train_full_width(card)
+    one_device = train_full_width(card)
     train_f32_identity(card)
     train_moe(card)
+    torch.cuda.empty_cache()
+    sharded_training(card, one_device)
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -20,6 +20,13 @@ numpy has no bfloat16: a bf16 leaf is stored as its uint16 bits with
 bytes, which are the bf16 bytes), and ``restore`` views the bits back.
 Every other dtype (f32, the 8-bit optimizer's int8/uint8 codes, int32
 steps) is stored as itself.
+
+Sharded states (DTensor leaves, one process per mesh position): ``save``
+gathers each leaf whole on every rank (all ranks call it), rank 0 writes
+and the others wait at a barrier until the step is published, so the
+layout is the one-device layout. ``restore`` places each leaf as its
+template leaf is placed, or as ``shardings`` says (JAX's
+``restore(..., shardings=)``), onto any mesh: the elastic restart.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import sharding as S
 
 PyTree = Any
 _SEP = "/"
@@ -41,7 +49,10 @@ _BF16 = "bfloat16"
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of ``x`` that nothing else holds (bf16 as uint16 bits)."""
+    """A host copy of ``x`` (of the whole of a DTensor) that nothing else
+    holds (bf16 as uint16 bits)."""
+    if S.is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
@@ -59,10 +70,25 @@ def _crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).tobytes())
 
 
+def _sharded(tree: PyTree) -> bool:
+    return any(S.is_dtensor(x) for x in T.leaves(tree))
+
+
 def save(root: str, step: int, tree: PyTree, *, extra: Optional[dict] = None,
          keep_last: int = 3) -> str:
-    """Synchronous checkpoint write. Returns the step directory path."""
-    return _write(root, step, _flatten(tree), extra or {}, keep_last)
+    """Synchronous checkpoint write. Returns the step directory path. For a
+    sharded tree every rank calls it, and it returns once rank 0 has
+    published the step."""
+    flat = _flatten(tree)
+    if not _sharded(tree):
+        return _write(root, step, flat, extra or {}, keep_last)
+    import torch.distributed as dist
+
+    final = os.path.join(root, f"step_{step:09d}")
+    if dist.get_rank() == 0:
+        _write(root, step, flat, extra or {}, keep_last)
+    dist.barrier()
+    return final
 
 
 def _write(root: str, step: int, flat: dict[str, tuple[np.ndarray, str]],
@@ -96,7 +122,9 @@ def _gc(root: str, keep_last: int) -> None:
 
 
 class AsyncSaver:
-    """Snapshot-then-write on a background thread (one in flight at a time)."""
+    """Snapshot-then-write on a background thread (one in flight at a
+    time). A sharded tree is saved synchronously (``save``): its ranks
+    meet at a barrier once the step is written."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -105,6 +133,9 @@ class AsyncSaver:
     def save(self, root: str, step: int, tree: PyTree, *,
              extra: Optional[dict] = None, keep_last: int = 3) -> None:
         self.wait()
+        if _sharded(tree):
+            save(root, step, tree, extra=extra, keep_last=keep_last)
+            return
         flat = _flatten(tree)                  # snapshot on caller thread
 
         def work():
@@ -132,11 +163,14 @@ def latest_step(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(root: str, template: PyTree, *, step: Optional[int] = None
-            ) -> tuple[PyTree, dict]:
-    """Restore into the structure of ``template``, each leaf on its
-    template leaf's device with the checkpoint's dtype; verify checksums
-    and shapes."""
+def restore(root: str, template: PyTree, *, step: Optional[int] = None,
+            shardings: Optional[PyTree] = None) -> tuple[PyTree, dict]:
+    """Restore into the structure of ``template``, each leaf with the
+    checkpoint's dtype on its template leaf's device, placed as a DTensor
+    template leaf is, or as ``shardings`` (a tree of
+    ``sharding.NamedSharding`` mirroring ``template``) says; verify
+    checksums and shapes. Placing a leaf distributes rank 0's copy, so
+    every rank of the target mesh calls this."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -145,8 +179,11 @@ def restore(root: str, template: PyTree, *, step: Optional[int] = None
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     out = []
+    targets = (T.leaves_up_to(template, shardings) if shardings is not None
+               else [None] * len(T.leaves(template)))
     with np.load(os.path.join(d, "arrays.npz")) as data:
-        for path, leaf in T.leaves_with_path(template):
+        for (path, leaf), target in zip(T.leaves_with_path(template),
+                                        targets):
             key = _SEP.join(str(k) for k in path)
             if key not in manifest["leaves"]:
                 raise KeyError(f"checkpoint missing leaf {key}")
@@ -161,5 +198,8 @@ def restore(root: str, template: PyTree, *, step: Optional[int] = None
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(leaf.device))
+            if target is None and S.is_dtensor(leaf):
+                target = S.NamedSharding(S.mesh_of(leaf), S.spec_of(leaf))
+            out.append(t.to(leaf.device) if target is None else
+                       S.place(t, target.mesh, target.spec))
     return T.unflatten(template, out), manifest

@@ -18,13 +18,14 @@ the modality encoder).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,19 +89,25 @@ def _frontend_table(cfg: ArchConfig, data_cfg: DataConfig) -> np.ndarray:
 
 class ShardedLoader:
     """Puts (seed, step)-addressable batches on one device (the card unless
-    the caller passes ``device="cpu"``). The JAX loader's mesh placement
-    (``shardings``) is not ported: it comes with ROADMAP A8b/A11."""
+    the caller passes ``device="cpu"``), or with ``shardings`` (a dict of
+    ``sharding.NamedSharding`` per batch key) onto a mesh: every rank makes
+    the same batch and keeps its own block of it, with no communication."""
 
     def __init__(self, cfg: ArchConfig, data_cfg: DataConfig, *, batch: int,
-                 seq: int, device="cuda"):
+                 seq: int, device="cuda", shardings: Optional[dict] = None):
         self.cfg, self.data_cfg = cfg, data_cfg
         self.batch, self.seq = batch, seq
         self.device = _device.resolve(device)
+        self.shardings = shardings
 
     def get(self, step: int) -> dict:
         host = make_batch(self.cfg, self.data_cfg, step, self.batch, self.seq)
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in host.items()}
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in host.items()}
+        if self.shardings is None:
+            return out
+        return {k: S.place(v, self.shardings[k].mesh, self.shardings[k].spec,
+                           from_rank=None) for k, v in out.items()}
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 
 
@@ -70,8 +71,13 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     The products take the operands in their own dtype and sum in f32
     (``layers.bmm_f32``: JAX's ``preferred_element_type``, with no f32
     copies of K/V on the card), and the probabilities are rounded to v's
-    dtype before the PV product, as there.
+    dtype before the PV product, as there. On DTensors (sharded training)
+    each rank attends over its own rows and heads
+    (``distributed.sharding.local_heads``).
     """
+    if S.is_dtensor(q):
+        return S.local_heads(lambda *qkv: chunked_causal_attention(
+            *qkv, q_chunk=q_chunk), q, k, v)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv

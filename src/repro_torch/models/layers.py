@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import device as _device
+from repro_torch.distributed import sharding as S
 
 
 # --------------------------------------------------------------------------
@@ -113,9 +114,14 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
 
 def embedding_lookup(p: dict, ids: torch.Tensor,
                      compute_dtype=None) -> torch.Tensor:
+    """``w[ids]``; on DTensors (sharded training) each rank looks up its
+    own ids in the gathered rows of its columns
+    (``distributed.sharding.local_lookup``)."""
     w = p["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
+    if S.is_dtensor(w):
+        return S.local_lookup(w, ids)
     return w[ids.long()]
 
 

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as S
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -213,6 +214,16 @@ def forward(params: PyTree, cfg: ArchConfig, batch: dict
     return _head(params, cfg, x), aux
 
 
+def _token_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """Per token, f32: the log-sum-exp of the logits, the gold label's
+    logit, and the argmax."""
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1).detach()
+    lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    return lse, gold, lf.argmax(-1)
+
+
 def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy + z-loss + the MoE aux loss. batch: the
@@ -222,21 +233,24 @@ def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict
     The max logit is held constant under differentiation (the JAX
     package's ``stop_gradient``). The gold logit is gathered where the JAX
     package sums a one-hot ``where``: both pick the one f32 value exactly,
-    and the gather builds no [B, S, V] mask."""
+    and the gather builds no [B, S, V] mask. On DTensors (sharded
+    training) each rank takes the per-token terms of its own rows over the
+    whole vocab (``sharding.local_rows``: the vocab shards of the logits
+    are gathered first)."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()
     mask = labels >= 0
     labels = torch.clamp(labels, min=0)
-    lf = logits.to(torch.float32)
-    m = lf.amax(dim=-1).detach()
-    lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    if S.is_dtensor(logits):
+        lse, gold, pred = S.local_rows(_token_terms, logits, labels)
+    else:
+        lse, gold, pred = _token_terms(logits, labels)
     nll = (lse - gold) * mask
     count = torch.clamp(mask.sum(), min=1).to(torch.int32)
     ce = nll.sum() / count
     zl = cfg.z_loss * ((lse * mask) ** 2).sum() / count
     loss = ce + zl + aux
-    acc = ((lf.argmax(-1) == labels) * mask).sum() / count
+    acc = ((pred == labels) * mask).sum() / count
     return loss, {"loss": loss, "ce": ce, "z_loss": zl, "moe_aux": aux,
                   "accuracy": acc, "tokens": count}
 

@@ -13,7 +13,9 @@ from typing import Any
 import torch
 
 from repro_torch import tree as T
-from repro_torch.optim.adamw import AdamWConfig, clip_by_global_norm
+from repro_torch.distributed import sharding as S
+from repro_torch.optim.adamw import (AdamWConfig, clip_by_global_norm,
+                                     step_zero)
 
 PyTree = Any
 f32 = torch.float32
@@ -21,14 +23,14 @@ f32 = torch.float32
 
 def adafactor_init(params: PyTree, cfg: AdamWConfig) -> dict:
     def factors(p):
+        spec = S.spec_of(p)
         if p.ndim >= 2:
-            return {"vr": torch.zeros(p.shape[:-1], dtype=f32,
-                                      device=p.device),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=f32,
-                                      device=p.device)}
-        return {"v": torch.zeros(p.shape, dtype=f32, device=p.device)}
-    return {"step": torch.zeros((), dtype=torch.int32,
-                                device=T.leaves(params)[0].device),
+            return {"vr": S.zeros(p.shape[:-1], f32, p,
+                                  S.row_factor_spec(spec)),
+                    "vc": S.zeros(p.shape[:-2] + p.shape[-1:], f32, p,
+                                  S.col_factor_spec(spec))}
+        return {"v": S.zeros(p.shape, f32, p, spec)}
+    return {"step": step_zero(params),
             "v": T.tree_map(factors, params)}
 
 
@@ -59,7 +61,9 @@ def adafactor_update(grads: PyTree, state: dict, params: PyTree, lr,
         u = u / torch.clamp(rms, min=1.0)
         pf = p.to(f32)
         pf = pf - lr * (u + cfg.weight_decay * pf)
-        return nv, pf.to(p.dtype)
+        # on DTensors the factors keep their placements (a mean over a
+        # split dim would otherwise stay a pending sum)
+        return T.tree_map(S.like, nv, v), S.like(pf.to(p.dtype), p)
 
     outs = [upd(g, v, p) for g, v, p in zip(
         T.leaves(grads), T.leaves_up_to(grads, state["v"]),

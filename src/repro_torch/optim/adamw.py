@@ -2,9 +2,11 @@
 
 States are kept in f32 regardless of parameter dtype (mixed-precision
 training: bf16 params, f32 master states is available via
-``master_weights``). Updates are functional, as in the JAX package: they
-return new tensors and leave their inputs untouched, so a state can be
-stepped twice from the same start.
+``master_weights``). On DTensor parameters (sharded training) each state
+is placed as its parameter is (``launch.specs.opt_state_pspecs``).
+Updates are functional, as in the JAX package: they return new tensors
+and leave their inputs untouched, so a state can be stepped twice from
+the same start.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import sharding as S
 
 PyTree = Any
 f32 = torch.float32
@@ -48,11 +51,16 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     return T.tree_map(lambda g: g.to(f32) * scale, grads), norm
 
 
+def step_zero(params: PyTree) -> torch.Tensor:
+    """The optimizer's int32 step counter, on the parameters' device
+    (replicated over their mesh for DTensor parameters)."""
+    return S.zeros((), torch.int32, T.leaves(params)[0], S.P())
+
+
 def adamw_init(params: PyTree, cfg: AdamWConfig) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=f32, device=p.device)
-    state = {"step": torch.zeros((), dtype=torch.int32,
-                                 device=T.leaves(params)[0].device),
+        return S.zeros(p.shape, f32, p, S.spec_of(p))
+    state = {"step": step_zero(params),
              "m": T.tree_map(zeros, params),
              "v": T.tree_map(zeros, params)}
     if cfg.master_weights:

@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
+from repro_torch.distributed import sharding as S
 from repro_torch.optim.adamw import (AdamWConfig, bias_corrections,
-                                     clip_by_global_norm)
+                                     clip_by_global_norm, step_zero)
 
 PyTree = Any
 BLOCK = 64
@@ -77,10 +78,16 @@ def _dequantize(qd: dict, shape) -> torch.Tensor:
 
 def adamw8bit_init(params: PyTree, cfg: AdamWConfig) -> dict:
     def qzero(p, signed):
-        return _quantize(torch.zeros(p.shape, dtype=f32, device=p.device),
-                         signed)
-    return {"step": torch.zeros((), dtype=torch.int32,
-                                device=T.leaves(params)[0].device),
+        """``_quantize`` of zeros, made as zeros (code 0, scale 0), so that
+        a DTensor state is placed by ``sharding.quant_spec``."""
+        lead = tuple(p.shape[:-1]) if p.ndim else ()
+        nb = -(-(p.shape[-1] if p.ndim else 1) // BLOCK)
+        spec = S.quant_spec(S.spec_of(p), nb, S.mesh_of(p)) \
+            if S.is_dtensor(p) else None
+        return {"q": S.zeros((*lead, nb, BLOCK),
+                             torch.int8 if signed else torch.uint8, p, spec),
+                "scale": S.zeros((*lead, nb, 1), f32, p, spec)}
+    return {"step": step_zero(params),
             "m": T.tree_map(lambda p: qzero(p, True), params),
             "v": T.tree_map(lambda p: qzero(p, False), params)}
 
@@ -102,7 +109,11 @@ def adamw8bit_update(grads: PyTree, state: dict, params: PyTree, lr,
         pf = p.to(f32)
         pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
                         + cfg.weight_decay * pf)
-        return _quantize(m, True), _quantize(v, False), pf.to(p.dtype)
+        # on DTensors the new codes keep the old ones' placements (a
+        # block max over a split dim would otherwise stay a pending max)
+        return (T.tree_map(S.like, _quantize(m, True), mq),
+                T.tree_map(S.like, _quantize(v, False), vq),
+                S.like(pf.to(p.dtype), p))
 
     outs = [upd(g, m, v, p) for g, m, v, p in zip(
         T.leaves(grads), T.leaves_up_to(grads, state["m"]),

@@ -10,6 +10,14 @@ Features wired here, as in the JAX package's ``train/train_step.py``:
 
 The step is functional: it returns a new state and leaves the one it was
 given untouched, so two runs may start from one state.
+
+Sharded training (the JAX package's ``jit`` with ``in_shardings``): the
+same step runs on a state and batch of DTensors placed by
+``launch.specs.train_state_pspecs`` and ``sharding.batch_specs``, one
+process per mesh position. Each gradient is brought to its parameter's
+placements before the update (a reduce-scatter where the parameter is
+split), and under ``int8_ef`` on a mesh with a ``pod`` axis each pod
+takes the grads of its own shard of the batch (``sharding.per_pod``).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import compression as C
+from repro_torch.distributed import sharding as S
 from repro_torch.models import loss_fn
 from repro_torch.optim import AdamWConfig, make_optimizer, warmup_cosine
 
@@ -57,13 +66,16 @@ def _value_and_grad(params: PyTree, cfg: ArchConfig, batch: dict
                     ) -> tuple[dict, PyTree]:
     """(the loss's metrics, grads in each parameter's dtype) of one batch.
     The parameters are taken as fresh autograd leaves, so the state's own
-    tensors need no ``requires_grad`` and gain no ``.grad``."""
+    tensors need no ``requires_grad`` and gain no ``.grad``. DTensor
+    grads come back placed as their parameters, and DTensor metrics
+    reduced onto every rank."""
     leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), S.plain_is_replicated(leaves[0]):
         loss, metrics = loss_fn(T.unflatten(params, leaves), cfg, batch)
         grads = torch.autograd.grad(loss, leaves)
-    return ({k: v.detach() for k, v in metrics.items()},
-            T.unflatten(params, grads))
+    return ({k: S.reduced(v.detach()) for k, v in metrics.items()},
+            T.unflatten(params, [S.like(g, p)
+                                 for g, p in zip(grads, leaves)]))
 
 
 def _mean_metrics(ms: list[dict]) -> dict:
@@ -77,6 +89,9 @@ def compute_grads(params: PyTree, cfg: ArchConfig, tcfg: TrainConfig,
     under ``int8_ef``, f32 grads averaged over the microbatches when
     ``microbatches > 1``, else the grads of the whole batch."""
     if tcfg.grad_compression == "int8_ef":
+        if S.has_axis(params, "pod"):
+            return S.per_pod(lambda p, b: _value_and_grad(p, cfg, b),
+                             params, batch)
         outs = [_value_and_grad(params, cfg, b)
                 for b in _split_micro(batch, tcfg.n_pods)]
         grads = T.unflatten(params, [
@@ -105,7 +120,8 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         new_state = dict(state)
         if tcfg.grad_compression == "int8_ef":
             grads, new_ef = C.compressed_mean_tree(grads, state["ef"])
-            new_state["ef"] = new_ef
+            grads = T.tree_map(S.like, grads, params)
+            new_state["ef"] = T.tree_map(S.like, new_ef, state["ef"])
         lr = warmup_cosine(state["opt"]["step"], peak_lr=tcfg.peak_lr,
                            warmup_steps=tcfg.warmup_steps,
                            total_steps=tcfg.total_steps)

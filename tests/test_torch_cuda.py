@@ -1327,3 +1327,40 @@ def test_bmm_f32_on_card_matches_the_cast_product(rng, cuda_device):
     wa, wb = torch.autograd.grad(want, (a, b), g)
     assert ga.dtype == gb.dtype == torch.bfloat16
     assert torch.equal(ga, wa) and torch.equal(gb, wb)
+
+
+# ---- sharded training: ranks that share the card (ROADMAP A8b) -------------
+
+def _local_job(target: str, world: int, tmp_path, **kwargs) -> list:
+    import os
+
+    from repro_torch.launch import local_ranks
+    return local_ranks.run(target, world, device="cuda", kwargs=kwargs,
+                           timeout=300, workdir=str(tmp_path / "job"),
+                           path=[os.path.dirname(os.path.abspath(__file__))])
+
+
+@pytest.mark.cuda
+def test_host_staged_collectives_on_two_ranks_of_one_card(cuda_device,
+                                                          tmp_path):
+    """Every collective DTensor issues, plain and functional, on CUDA
+    tensors of 2 ranks that share the card, == its local reduction."""
+    got = _local_job("repro_torch.distributed.hoststaged:probe", 2, tmp_path)
+    assert all(all(r.values()) for r in got) and len(got[0]) == 10
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_card_matches_one_device(cuda_device, tmp_path):
+    """Reduced tinyllama (f32) trained by ``train_on_mesh`` over (data 1,
+    model 2), 2 ranks on the card, against the one-device launcher on the
+    card: ce at every step within rtol 1e-5."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cuda",
+            "--steps", "3", "--batch", "8", "--seq", "16"]
+    ranks = _local_job("torch_mesh_ranks:launcher_on_mesh", 2, tmp_path,
+                       shape=[1, 2], device="cuda",
+                       argv=argv + ["--ckpt-dir", str(tmp_path / "mesh")])
+    one = launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    np.testing.assert_allclose(ranks[0]["ce"], [h["ce"] for h in one.history],
+                               rtol=1e-5)
+    assert "devices=2 (data 1 x model 2 on " in ranks[0]["lines"]

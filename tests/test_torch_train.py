@@ -396,9 +396,15 @@ def test_launcher_multi_pod_runs_two_pods():
 
 
 def test_launcher_refuses_the_production_mesh():
-    with pytest.raises(SystemExit, match="A8"):
-        launch_train.parse_args(["--arch", "tinyllama-1.1b", "--mesh",
-                                 "production"])
+    """``--mesh production`` parses; on a job smaller than 16 x 16 ranks
+    (this single process) building the mesh raises, naming the shape."""
+    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
+            "--mesh", "production"]
+    assert launch_train.parse_args(argv).mesh == "production"
+    with pytest.raises(ValueError, match=r"\(16, 16\).*needs 256 ranks"):
+        launch_train.main(argv)
+    with pytest.raises(ValueError, match=r"\(2, 16, 16\).*needs 512 ranks"):
+        launch_train.main(argv + ["--multi-pod"])
 
 
 def test_launcher_refuses_a_missing_card():

@@ -1,0 +1,214 @@
+"""Rank bodies of tests/test_torch_multidevice.py and of the on-card mesh
+tests in tests/test_torch_cuda.py: each runs in every process of a local
+job (``repro_torch.launch.local_ranks``), imports no JAX, and returns a
+JSON-able result; rank 0 writes tensors to ``.npz`` files for the test.
+
+Params arrive as an ``.npz`` of the JAX package's initial parameters
+(keys: leaf paths joined by "/"), so every world starts from the same
+model as the JAX reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch import tree as T
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import registry
+from repro_torch.data.pipeline import DataConfig, ShardedLoader
+from repro_torch.distributed import hoststaged
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.elastic import reshard_tree, replicate_tree
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import params_from_numpy
+from repro_torch.optim import AdamWConfig
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step)
+
+BATCH, SEQ = 8, 16
+# the JAX multidevice test's train configs
+PLAIN = TrainConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+COMPRESSED = TrainConfig(peak_lr=3e-3, warmup_steps=3, total_steps=60,
+                         adamw=AdamWConfig(weight_decay=0.0),
+                         grad_compression="int8_ef", n_pods=2)
+
+
+def _cfg():
+    return registry.get("tinyllama-1.1b", reduced=True)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *head, last = key.split("/")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
+def _setup(mesh, params_npz: str, tcfg: TrainConfig, seed: int, device: str):
+    """(cfg, state placed by the JAX rules, loader placing batches, step,
+    state specs)."""
+    cfg = _cfg()
+    with np.load(params_npz) as f:
+        params = params_from_numpy(_nest(dict(f)), cfg, device)
+    rules = shd.Rules.for_mesh(mesh)
+    specs = SP.train_state_pspecs(cfg, mesh, rules,
+                                  SP.train_state_shapes(cfg, tcfg))
+    placed = T.tree_map(lambda x, s: shd.place(x, mesh, s), params,
+                        specs["params"])
+    loader = ShardedLoader(cfg, DataConfig(seed=seed), batch=BATCH, seq=SEQ,
+                           device=device, shardings=shd.named(
+                               mesh, shd.batch_specs(cfg, mesh, rules,
+                                                     global_batch=BATCH)))
+    return (cfg, init_train_state(placed, tcfg), loader,
+            make_train_step(cfg, tcfg), specs)
+
+
+def _save_rank0(path: str, **arrays) -> None:
+    if dist.get_rank() == 0:
+        np.savez(path, **{k: v.detach().cpu().numpy()
+                          for k, v in arrays.items()})
+
+
+def _placed_as(state, specs) -> bool:
+    return all(shd.spec_of(x) == s for x, s in
+               zip(T.leaves(state), T.leaves_up_to(state, specs)))
+
+
+def debug_mesh_steps(params_npz: str, out_npz: str, ckpt_dir: str,
+                     device: str = "cpu") -> dict:
+    """On ``make_debug_mesh((2, 4))``: the state placed by
+    ``train_state_pspecs`` (init included), one step (ce, ``lm_head/w``),
+    a checkpoint of its state, a second step (the elastic reference), and
+    ``reshard_tree`` to (4, 2) and back / ``replicate_tree`` bit for bit."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((2, 4), devices=device)
+    cfg, state, loader, step, specs = _setup(mesh, params_npz, PLAIN, 1,
+                                             device)
+    out = {"placed": _placed_as(state, specs)}
+    s1, m1 = step(state, loader.get(0))
+    out["ce"] = float(m1["ce"])
+    out["placed_after"] = _placed_as(s1, specs)
+    _save_rank0(out_npz, lm_head=s1["params"]["lm_head"]["w"].full_tensor())
+    ckpt.save(ckpt_dir, 0, s1)
+    _, m2 = step(s1, loader.get(1))
+    out["ce_next"] = float(m2["ce"])
+    # elastic, live: to (4, 2) and back, and replicated
+    other = make_mesh((4, 2), ("data", "model"), devices=device)
+    specs42 = SP.train_state_pspecs(cfg, other, shd.Rules.for_mesh(other),
+                                    SP.train_state_shapes(cfg, PLAIN))
+    moved = reshard_tree(s1, other, specs42)
+    back = reshard_tree(moved, mesh, specs)
+    out["round_trip"] = _placed_as(moved, specs42) and all(
+        torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(T.leaves(s1), T.leaves(back)))
+    rep = replicate_tree(s1, mesh)
+    out["replicated"] = all(
+        torch.equal(r.to_local(), a.full_tensor())
+        for r, a in zip(T.leaves(rep), T.leaves(s1)))
+    return out
+
+
+def elastic_restore(ckpt_dir: str, device: str = "cpu") -> dict:
+    """The checkpoint of :func:`debug_mesh_steps` restored onto (2, 2) by
+    the JAX rules, and the next step's ce."""
+    mesh = make_mesh((2, 2), ("data", "model"), devices=device)
+    cfg = _cfg()
+    rules = shd.Rules.for_mesh(mesh)
+    shapes = SP.train_state_shapes(cfg, PLAIN)
+    specs = SP.train_state_pspecs(cfg, mesh, rules, shapes)
+    state, manifest = ckpt.restore(ckpt_dir, shapes,
+                                   shardings=shd.named(mesh, specs))
+    loader = ShardedLoader(cfg, DataConfig(seed=1), batch=BATCH, seq=SEQ,
+                           device=device, shardings=shd.named(
+                               mesh, shd.batch_specs(cfg, mesh, rules,
+                                                     global_batch=BATCH)))
+    _, m = make_train_step(cfg, PLAIN)(state, loader.get(1))
+    return {"ce": float(m["ce"]), "step": manifest["step"],
+            "placed": _placed_as(state, specs)}
+
+
+def compressed_steps(params_npz: str, out_npz: str, steps: int,
+                     device: str = "cpu") -> dict:
+    """int8_ef over 2 pods on (pod 2, data 2, model 2): the first step's
+    ce and ``lm_head/w``, ``steps`` steps' ce, and the collectives staged
+    in the first step (the pods' int8 all-reduce among them)."""
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), devices=device)
+    _, state, loader, step, specs = _setup(mesh, params_npz, COMPRESSED, 2,
+                                           device)
+    out = {"placed": _placed_as(state, specs), "ce": []}
+    for i in range(steps):
+        hoststaged.reset_stats()
+        state, m = step(state, loader.get(i))
+        out["ce"].append(float(m["ce"]))
+        if i == 0:
+            out["staged"] = dict(hoststaged.STATS)
+            _save_rank0(out_npz,
+                        lm_head=state["params"]["lm_head"]["w"].full_tensor())
+    out["placed_after"] = _placed_as(state, specs)
+    return out
+
+
+def spec_round_trip(device: str = "cpu") -> list:
+    """``spec_of(place(x, mesh, spec)) == spec`` for specs of one axis, two
+    axes on one dim, and none, on (pod 2, data 2, model 2)."""
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), devices=device)
+    x = torch.arange(8 * 8 * 4, dtype=torch.float32).reshape(8, 8, 4)
+    out = []
+    for spec in (shd.P(("pod", "data"), "model", None),
+                 shd.P(None, ("data", "model"), None), shd.P("pod", None),
+                 shd.P(None, None, "model"), shd.P()):
+        y = shd.place(x, mesh, spec)
+        out.append(shd.spec_of(y) == shd.P(*spec, *(None,) * (3 - len(spec)))
+                   and torch.equal(y.full_tensor(), x))
+    return out
+
+
+def launcher_on_mesh(argv: list, shape: list, device: str = "cpu") -> dict:
+    """``launch.train.train_on_mesh`` over ``make_debug_mesh(shape)`` (the
+    body of ``--mesh production`` once the mesh is built): each step's ce,
+    rank 0's two report lines, and a second call on the same checkpoint
+    directory, which resumes at its last step and takes none."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(tuple(shape), devices=device)
+    args = train.parse_args(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        first = train.train_on_mesh(args, mesh)
+        again = train.train_on_mesh(args, mesh)
+    return {"ce": [h["ce"] for h in first.history],
+            "resumed": len(again.history), "lines": out.getvalue()}
+
+
+def optimizer_state_placements(optimizer: str, device: str = "cpu") -> dict:
+    """Two steps of ``optimizer`` on (data 2, model 2) from the launcher's
+    build: whether the state is placed by ``train_state_pspecs`` before
+    the steps, the leaves that are not after them, and each step's ce."""
+    from repro_torch.launch import train
+    mesh = make_mesh((2, 2), ("data", "model"), devices=device)
+    args = train.parse_args(["--arch", "tinyllama-1.1b", "--reduced",
+                             "--device", device, "--batch", str(BATCH),
+                             "--seq", str(SEQ), "--optimizer", optimizer])
+    s = train.build_on_mesh(args, mesh)
+    specs = SP.train_state_pspecs(s.cfg, mesh, shd.Rules.for_mesh(mesh),
+                                  SP.train_state_shapes(s.cfg, s.tcfg))
+    state, ces = s.state, []
+    for i in range(2):
+        state, m = s.step(state, s.loader.get(i))
+        ces.append(float(m["ce"]))
+    bad = [shd.path_str(p) for (p, x), spec in zip(
+        T.leaves_with_path(state), T.leaves_up_to(state, specs))
+        if any(not isinstance(pl, (Replicate, Shard)) for pl in x.placements)
+        or shd.spec_of(x) != spec]
+    return {"before": _placed_as(s.state, specs), "after_bad": bad,
+            "ce": ces}
