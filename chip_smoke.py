@@ -155,6 +155,15 @@ Phases (any failure exits non-zero before the final line):
    with the int8 all-reduce across the pods counted; the state saved on
    (2, 2), restored onto (data 2, model 1) by 2 ranks, takes the next
    step with the ce of the run that goes on at (2, 2) (rtol 1e-5);
+8d. the dry run (``launch/dryrun.py``), in this process: 8b's step traced
+   by ``launch.op_analysis`` on fake CUDA tensors as rank 0 of a counting
+   world of 4 (``distributed/countgroup.py``), no hints: every collective's
+   calls and bytes == rank 0's host-staged tally of one 8b step exactly,
+   and the predicted arguments + temporaries within 15 % of rank 0's peak
+   in one 8b step after the first; then ``run_cell`` of every shape of
+   tinyllama-1.1b on the 256-rank mesh and of llama3-405b ``train_4k`` on
+   the 512-rank one, each ``ok`` and traced on the card's path, printed
+   as predictions;
 9. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -3012,6 +3021,9 @@ SHARDED_STEPS = 3               # full-width sharded AdamW steps
 # the JAX multidevice test's tolerances (tests/distributed/test_multidevice.py)
 MESH_CE_RTOL = 1e-5
 MESH_W_TOL = dict(atol=2e-5, rtol=1e-4)
+# the dry run's per-rank bytes (arguments + temporaries) against a measured
+# step's peak
+DRYRUN_PEAK_TOL = 0.15
 
 
 def _mesh_job(fn: str, world: int, module: str = "chip_smoke",
@@ -3059,19 +3071,25 @@ def rank_full_width(argv: list, steps: int) -> dict:
     state, s.state = s.state, None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    recs = []
+    recs, peak = [], 0
     for i in range(steps):
         batch = s.loader.get(i)
         dist.barrier()
         hoststaged.reset_stats()
         torch.cuda.synchronize()
+        # a step after the first alone: its peak, without the draw of the
+        # full parameters at init (phase 8d's prediction is held to it)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, metrics = s.step(state, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rec = _record(metrics)
         recs.append({"ce": rec["ce"], "grad_norm": rec["grad_norm"], "s": dt,
-                     "staged": dict(hoststaged.STATS)})
+                     "staged": dict(hoststaged.STATS), "held": held,
+                     "step_peak": torch.cuda.max_memory_allocated()})
     local = sum(x.to_local().numel() * x.element_size()
                 for x in T.leaves(state))
     placed = {k: str(v.placements) for k, v in (
@@ -3079,8 +3097,8 @@ def rank_full_width(argv: list, steps: int) -> dict:
         ("m lm_head/w", state["opt"]["m"]["lm_head"]["w"]),
         ("wk", state["params"]["layers"]["attn"]["wk"]["w"]))}
     return {"steps": recs, "init_s": init_s,
-            "peak": torch.cuda.max_memory_allocated(), "state_bytes": local,
-            "placements": placed}
+            "peak": max(peak, torch.cuda.max_memory_allocated()),
+            "state_bytes": local, "placements": placed}
 
 
 def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
@@ -3174,11 +3192,81 @@ def _staged_line(staged: dict) -> str:
                      for k, (n, b) in sorted(staged.items()))
 
 
+def dry_run(card: str, r0: dict) -> None:
+    """8d: 8b's step traced on fake CUDA tensors as rank 0 of a counting
+    world of 4, held to rank 0's staged collectives (exact) and its peak
+    in a step after the first (15 %); then the dry run's cells of
+    tinyllama-1.1b and llama3-405b ``train_4k`` on 512 ranks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeCell, applicable_shapes
+    from repro_torch.distributed import countgroup
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, op_analysis, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import make_train_step
+    args = train.parse_args(TRAIN + ["--steps", str(SHARDED_STEPS)])
+    cfg, tcfg = train.arch_config(args), train.train_config(args)
+    cell = ShapeCell("8b", args.seq, args.batch, "train")
+    t0 = time.perf_counter()
+    with countgroup.world(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state, batch = dryrun.train_args(cfg, tcfg, cell, mesh,
+                                             shd.Rules.for_mesh(mesh))
+        _, ops = op_analysis.analyze(make_train_step(cfg, tcfg), state,
+                                     batch)
+    took = time.perf_counter() - t0
+    last = r0["steps"][-1]
+    want, got = last["staged"], ops["staged"]
+    if got != want:
+        raise AssertionError(
+            "8d: the traced collectives differ from rank 0's staged ones: "
+            + "; ".join(f"{k}: traced {got.get(k)} staged {want.get(k)}"
+                        for k in sorted(set(got) | set(want))
+                        if got.get(k) != want.get(k)))
+    predicted = ops["argument_bytes"] + ops["temp_bytes"]
+    ratio = predicted / last["step_peak"]
+    if abs(ratio - 1) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"8d: predicted {predicted} bytes a rank, "
+                             f"rank 0's step peak {last['step_peak']} "
+                             f"(x{ratio:.3f}, limit {DRYRUN_PEAK_TOL})")
+    print(f"dry run 8d [8b's step traced on fake CUDA tensors, rank 0 of a "
+          f"counting world of 4, {took:.1f} s]: collectives == rank 0's "
+          f"staged tally exactly ({_staged_line(got)}); predicted "
+          f"arguments {_gib(ops['argument_bytes'])} + temporaries "
+          f"{_gib(ops['temp_bytes'])} = {_gib(predicted)} against rank 0's "
+          f"peak in step {len(r0['steps']) - 1} alone "
+          f"{_gib(last['step_peak'])} ({_gib(last['held'])} held as it "
+          f"started): x{ratio:.4f} (limit "
+          f"{DRYRUN_PEAK_TOL}); dot_flops {ops['dot_flops']:.4g} ({card})")
+    out = ROOT / "build" / "chip_smoke" / "dryrun"
+    cells = [("tinyllama-1.1b", c.name, "single") for c in
+             applicable_shapes(registry.get("tinyllama-1.1b"))]
+    for arch, shape, mk in cells + [("llama3-405b", "train_4k", "multi")]:
+        rec = dryrun.run_cell(arch, shape, mk, str(out), force=True)
+        if rec["status"] != "ok" or rec["traced_on"] != "cuda":
+            raise AssertionError(f"8d: dry run {arch} x {shape} x {mk}: "
+                                 f"{rec['status']} on {rec['traced_on']}: "
+                                 f"{rec.get('traceback', '')}")
+        m, o = rec["memory"], rec["ops"]
+        coll = ", ".join(f"{k} {v / 2**30:.3f} GiB"
+                         for k, v in o["collective_bytes"].items() if v)
+        print(f"dry run 8d [prediction, {rec['chips']} ranks, traced on "
+              f"{rec['traced_on']}, {rec['trace_s']:.1f} s] {arch} x {shape} "
+              f"x {mk}: {rec['status']}; a rank's arguments "
+              f"{_gib(m['argument_bytes'])}, temporaries "
+              f"{_gib(m['temp_bytes'])}, dot_flops {o['dot_flops']:.4g}, "
+              f"collective bytes {coll or 'none'} ({card})")
+
+
 def sharded_training(card: str, one_device: dict) -> None:
     """Phase 8: 8a the collective probe, 8b tinyllama-1.1b at its
     published widths over (data 2, model 2) with 4 ranks on the card,
     8c the f32 identities (sharded == one device, the compressed step's
-    int8 pod all-reduce, the elastic restart on 2 ranks)."""
+    int8 pod all-reduce, the elastic restart on 2 ranks), 8d the dry run
+    held to 8b."""
     import gc
     import shutil
     n = 4
@@ -3234,6 +3322,8 @@ def sharded_training(card: str, one_device: dict) -> None:
           f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; staged "
           f"bytes a step by rank "
           f"{', '.join(f'{b / 2**30:.2f} GiB' for b in per_rank)}"
+          f"; peak in step {SHARDED_STEPS - 1} alone by rank "
+          f"{', '.join(_gib(r['steps'][-1]['step_peak']) for r in ranks)}"
           f"; init {r0['init_s']:.1f} s; placements {r0['placements']}; job "
           f"{took:.1f} s ({card})")
 
@@ -3269,6 +3359,7 @@ def sharded_training(card: str, one_device: dict) -> None:
           f"{elastic[0]['placement']}): next step ce {elastic[0]['ce']:.7f} "
           f"vs {sh['ce_next']:.7f} going on at (2, 2) (|diff| {d:.3g}, rtol "
           f"{MESH_CE_RTOL}); 8c in {time.perf_counter() - t0:.1f} s ({card})")
+    dry_run(card, r0)
 
 
 def main() -> int:

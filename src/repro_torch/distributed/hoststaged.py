@@ -40,9 +40,17 @@ def reset_stats() -> None:
     STATS.clear()
 
 
-def _count(group, op: str, *tensors: torch.Tensor) -> None:
-    dtype = str(tensors[0].dtype).removeprefix("torch.") if tensors else "-"
-    s = STATS[f"{op} {dtype} x{group.size()}"]
+def stat_key(op: str, dtype, group_size: int) -> str:
+    """``STATS``'s key of a collective: ``"all_reduce int8 x2"``."""
+    name = str(dtype).removeprefix("torch.") if dtype is not None else "-"
+    return f"{op} {name} x{group_size}"
+
+
+def _count(group, op: str, *tensors: torch.Tensor, into=None) -> None:
+    """One call of ``op`` by ``group`` on ``tensors`` (this rank's input
+    operands) counted in ``into`` (default ``STATS``)."""
+    s = (STATS if into is None else into)[
+        stat_key(op, tensors[0].dtype if tensors else None, group.size())]
     s[0] += 1
     s[1] += sum(t.numel() * t.element_size() for t in tensors)
 
@@ -70,22 +78,16 @@ def _done(result):
     return _create_work_from_future(fut)
 
 
-class HostStagedGroup(dist.ProcessGroup):
-    """gloo on the host for the tensors of any device (see the module
-    docstring): the collectives that DTensor and ``distribute_tensor``
-    issue. Both spellings of each that torch's Python process-group hook
-    has used are defined, so that the class serves several torch
-    releases (2.11 on the card, 2.13 in the CPU tests)."""
+class NamedGroup(dist.ProcessGroup):
+    """A process group written in Python: the name and description that
+    c10d sets after creation, under both spellings torch's Python hook has
+    used, so that a subclass serves several torch releases (2.11 on the
+    card, 2.13 in the CPU tests)."""
 
-    def __init__(self, store, rank: int, size: int, timeout):
+    def __init__(self, rank: int, size: int):
         super().__init__(rank, size)
         self._group_name = self._group_desc = ""
-        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
 
-    def getBackendName(self) -> str:
-        return NAME
-
-    # the group's name and description, which c10d sets after creation
     def setGroupName(self, name: str) -> None:
         self._group_name = name
 
@@ -101,6 +103,20 @@ class HostStagedGroup(dist.ProcessGroup):
     _set_group_name, _set_group_desc = setGroupName, setGroupDesc
     group_name = property(getGroupName)
     group_desc = property(getGroupDesc)
+
+
+class HostStagedGroup(NamedGroup):
+    """gloo on the host for the tensors of any device (see the module
+    docstring): the collectives that DTensor and ``distribute_tensor``
+    issue, each under both spellings torch's Python process-group hook
+    has used."""
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+
+    def getBackendName(self) -> str:
+        return NAME
 
     # -- reductions ----------------------------------------------------------
     def allreduce(self, tensors, opts=None):

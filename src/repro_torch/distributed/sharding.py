@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import re
 from typing import Any, Optional
 
@@ -547,6 +548,19 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same memory from the same offset
+    (by storage, so that fake tensors and DTensors compare too)."""
+    a, b = local(a), local(b)
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 def _split_rows(keep: list, mesh, rows: int) -> list:
     """Placements, one per mesh dim, for a per-row computation: a dim
     whose entry in ``keep`` is a placement keeps it; the others split the
@@ -607,6 +621,182 @@ def local_heads(fn, q, k, v):
                      in_placements=(qpl, kvpl, kvpl),
                      in_grad_placements=(qpl, kvgrad, kvgrad),
                      redistribute_inputs=True)(q, k, v)
+
+
+def _gather_dims(x, dims):
+    """DTensor ``x`` with each of tensor ``dims`` whole on every rank
+    (gathered where split), its other placements kept."""
+    from torch.distributed.tensor import Replicate
+
+    pls = [Replicate() if pl.is_shard() and pl.dim % x.ndim in dims else pl
+           for pl in x.placements]
+    if pls == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+def _whole_middle(x):
+    """``x`` with every dim between its first and its last whole; plain
+    tensors and DTensors of fewer than 3 dims pass through."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x
+    return _gather_dims(x, range(1, x.ndim - 1))
+
+
+class _WholeMiddleGrad(torch.autograd.Function):
+    """The identity, whose gradient has its middle dims gathered."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_middle(g)
+
+
+def matmul(x, w):
+    """``x @ w`` (x [..., k], w [k, n]). The product folds x's leading dims
+    into one, and its backward folds the result's gradient so; DTensor
+    folds a dim split over the mesh only when it leads the fold (torch
+    2.11 refuses the others, 2.13 strides them). So on a DTensor every dim
+    between x's first and last is gathered before the product, and so is
+    the gradient before the product's backward: a sequence split over tp
+    (the dry run's ``hidden`` hint, Megatron sequence parallelism) is
+    gathered there, as Megatron gathers it."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x @ w
+    return _WholeMiddleGrad.apply(_whole_middle(x) @ w)
+
+
+def whole_unless_even(x, dim: int, unit: int):
+    """DTensor ``x`` with ``dim`` gathered unless every rank's share of it
+    is a whole number of ``unit``-long pieces, the same for each (so that
+    a reshape may cut the dim into pieces: DTensor cannot cut a piece
+    across ranks); plain tensors pass through."""
+    if not is_dtensor(x):
+        return x
+    d, n = dim % x.ndim, 1
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard() and pl.dim % x.ndim == d:
+            n *= x.device_mesh.size(i)
+    return x if x.shape[d] % (n * unit) == 0 else _gather_dims(x, (d,))
+
+
+def split_heads(x, heads: int, head_dim: int):
+    """``x`` [B, S, heads * head_dim] as [B, S, heads, head_dim]. A DTensor
+    whose last dim is split finer than the heads (tp > n_kv_heads: the
+    GQA fallback's kv heads, which replicate over tp anyway) gathers that
+    dim first."""
+    b, s = x.shape[:2]
+    return whole_unless_even(x, -1, head_dim).reshape(b, s, heads, head_dim)
+
+
+def _position_share(cache) -> tuple[list, int]:
+    """(the mesh dims that split the positions of DTensor ``cache`` [B, S,
+    Hkv, D], this rank's first position). Raises ``ValueError`` unless
+    those dims split S evenly: DTensor gives uneven shares the sizes of
+    ``torch.chunk``, whose offsets this does not follow."""
+    from torch.distributed.tensor import Shard
+
+    mesh = cache.device_mesh
+    dims = [i for i, pl in enumerate(cache.placements) if pl == Shard(1)]
+    n = math.prod(mesh.size(i) for i in dims)
+    if cache.shape[1] % n:
+        raise ValueError(f"a cache of {cache.shape[1]} positions does not "
+                         f"split evenly over {n} position shards")
+    block, share = 0, cache.shape[1] // n
+    for i in dims:                      # mesh order: major to minor
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    return dims, block * share
+
+
+def _rows_heads(cache, head_dim: int) -> list:
+    """Placements, one per mesh dim, of a tensor whose dim 0 is the rows of
+    DTensor ``cache`` [B, S, Hkv, D] and whose dim ``head_dim`` its (query
+    or kv) heads: split as the cache splits them, whole elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if pl == Shard(0) else
+            Shard(head_dim) if pl == Shard(2) else Replicate()
+            for pl in cache.placements]
+
+
+def write_prefix(cache, new) -> None:
+    """``cache[:, :s] = new`` (``new`` [B, s, Hkv, D]), in place. On a
+    DTensor cache each rank writes the positions of its own share: a
+    slice across the shards of a DTensor is a gathered copy, and writing
+    it would leave the cache as it was."""
+    s = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, :s] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor.experimental import local_map
+
+    _, first = _position_share(cache)
+
+    def write(cl, nl):
+        n = max(0, min(s - first, cl.shape[1]))
+        cl[:, :n] = nl[:, first:first + n].to(cl.dtype)
+        return cl
+
+    local_map(write, out_placements=list(cache.placements),
+              in_placements=(tuple(cache.placements),
+                             _rows_heads(cache, 2)),
+              redistribute_inputs=True)(cache, new)
+
+
+def decode_attention(q, cache_k, cache_v, new_k, new_v, cache_len):
+    """``kernels.ref.decode_attention_ref`` (append, then attend; the
+    caches come back as new tensors) on DTensor caches [B, S, Hkv, D]
+    placed by ``kv_cache_spec``: rows, positions or kv heads split over
+    mesh dims. Each rank writes the new k, v of the rows whose position
+    falls in its share of the positions, and attends its rows' and heads'
+    queries over its own positions; the softmax's max and sum and the
+    output are then summed up over the mesh dims that split the positions
+    (all-reduces of [B, H] and [B, H, D] per rank, as GSPMD does for a
+    sequence-sharded cache). Returns (out [B, H, D], k', v')."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    s, d = cache_k.shape[1], cache_k.shape[3]
+    cpl = tuple(cache_k.placements)
+    seq, first = _position_share(cache_k)
+    qpl = _rows_heads(cache_k, 1)
+    lenpl = [Shard(0) if pl == Shard(0) else Replicate() for pl in cpl]
+
+    def summed(x, op: str):
+        for i in seq:
+            x = fc.all_reduce(x, op, (mesh, i))
+        return x
+
+    def attend(ql, ck, cv, nk, nv, lens):
+        pos = lens.long()
+        at = torch.where(pos < 0, pos + s, pos) - first   # the oracle's wrap
+        mine = ((at >= 0) & (at < ck.shape[1]))[:, None, None]
+        rows = torch.arange(ck.shape[0], device=ck.device)
+        at = at.clamp(0, ck.shape[1] - 1)
+        ck, cv = ck.clone(), cv.clone()
+        ck[rows, at] = torch.where(mine, nk.to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(mine, nv.to(cv.dtype), cv[rows, at])
+        f32 = torch.float32
+        bl, hl = ql.shape[:2]
+        qg = ql.reshape(bl, ck.shape[2], hl // ck.shape[2], d).to(f32)
+        sc = torch.einsum("bhgd,bshd->bhgs", qg, ck.to(f32)) / (d ** 0.5)
+        kpos = first + torch.arange(ck.shape[1], device=ck.device)
+        valid = (kpos[None] <= pos[:, None])[:, None, None, :]
+        sc = sc.masked_fill(~valid, float("-inf"))
+        e = torch.exp(sc - summed(sc.amax(-1, keepdim=True), "max"))
+        p = (e / summed(e.sum(-1, keepdim=True), "sum")).to(cv.dtype)
+        out = torch.einsum("bhgs,bshd->bhgd", p.to(f32), cv.to(f32))
+        return summed(out, "sum").reshape(bl, hl, d).to(ql.dtype), ck, cv
+
+    return local_map(attend, out_placements=(qpl, list(cpl), list(cpl)),
+                     in_placements=(qpl, cpl, cpl, qpl, qpl, lenpl),
+                     redistribute_inputs=True)(
+        q, cache_k, cache_v, new_k, new_v, on_mesh_of(cache_len, cache_k))
 
 
 def on_mesh_of(x, ref):

@@ -431,6 +431,14 @@ def serial_decode(q, cache_k, cache_v, new_k, new_v, cache_len, *,
     return out, tiles
 
 
+def split_partial_shapes(b: int, h: int, d: int,
+                         num_kv_splits: int) -> tuple[tuple, tuple]:
+    """Stage 1's f32 outputs, stage 2's inputs: acc [B, ns, H, D] and the
+    (running max, denominator) stats [B, ns, H, 2]."""
+    ns = max(1, int(num_kv_splits))
+    return (b, ns, h, d), (b, ns, h, 2)
+
+
 def split_partials(q, cache_k, cache_v, new_k, new_v, cache_len, *,
                    seq_tile: int, n_tiles: int, length_mask: bool,
                    num_kv_splits: int) -> tuple:
@@ -442,8 +450,9 @@ def split_partials(q, cache_k, cache_v, new_k, new_v, cache_len, *,
     q, new_k, new_v, lens = _kernel_inputs(
         "split_partials", q, cache_k, cache_v, new_k, new_v, cache_len)
     f32 = torch.float32
-    acc = torch.empty((b, num_kv_splits, h, d), dtype=f32, device=q.device)
-    stats = torch.empty((b, num_kv_splits, h, 2), dtype=f32, device=q.device)
+    acc_shape, stats_shape = split_partial_shapes(b, h, d, num_kv_splits)
+    acc = torch.empty(acc_shape, dtype=f32, device=q.device)
+    stats = torch.empty(stats_shape, dtype=f32, device=q.device)
     tiles = torch.empty((b,), dtype=torch.int32, device=q.device)
     P = _build.ptr
     SPLIT_KERNEL(P(q), P(cache_k), P(cache_v), P(new_k), P(new_v), P(lens),
@@ -463,7 +472,7 @@ def split_combine(acc: torch.Tensor, stats: torch.Tensor,
     if out_dtype not in _build.DTYPE_CODE:
         raise ValueError(f"split_combine: {out_dtype} not supported")
     if acc.dtype != torch.float32 or stats.dtype != torch.float32 or \
-            stats.shape != (b, ns, h, 2):
+            stats.shape != split_partial_shapes(b, h, d, ns)[1]:
         raise ValueError("split_combine: partials must be f32 acc "
                          "[B, ns, H, D] and stats [B, ns, H, 2]")
     _build.check_cuda("split_combine", acc, stats)

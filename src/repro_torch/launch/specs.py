@@ -1,10 +1,10 @@
-"""Shape-only stand-ins for the parameters, the train state and the decode
-state, and the sharding trees of a train state.
+"""Shape-only stand-ins for every model input and state (the dry run's
+no-allocation input builders), and the sharding trees of a train state.
 
-The JAX package builds its stand-ins with ``jax.eval_shape``; the port
-builds the same trees on the meta device, which allocates nothing, so a
-spec of llama3-405b costs no memory. The spec functions take any leaf
-with a ``.shape``.
+The JAX package builds its stand-ins as ``ShapeDtypeStruct``s and with
+``jax.eval_shape``; the port builds the same shapes and trees on the meta
+device (:func:`sds`), which allocates nothing, so a spec of llama3-405b
+costs no memory. The spec functions take any leaf with a ``.shape``.
 """
 from __future__ import annotations
 
@@ -13,12 +13,78 @@ from typing import Any
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import init_decode_state, init_params
 from repro_torch.train.train_step import TrainConfig, init_train_state
 
 PyTree = Any
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in (JAX's ``ShapeDtypeStruct``): a tensor
+    on the meta device."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """Batch stand-ins for one shape cell."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "decode":
+        if cfg.input_mode == "tokens":
+            return {"inputs": sds((b, 1), torch.int32)}
+        return {"inputs": sds((b, 1, cfg.d_model), cfg.cdtype)}
+    batch = {"labels": sds((b, s), torch.int32)}
+    if cfg.input_mode == "tokens":
+        batch["inputs"] = sds((b, s), torch.int32)
+    else:
+        batch["inputs"] = sds((b, s, cfg.d_model), cfg.cdtype)
+    if cfg.pos_embed == "mrope":
+        batch["positions"] = sds((b, s, 3), torch.int32)
+    return batch
+
+
+def prefill_chunk_specs(cfg: ArchConfig, batch: int, chunk: int) -> dict:
+    """Batch stand-ins for one chunked-prefill step, the serving engine's
+    admission compute: ``batch`` sequences each contribute one
+    ``chunk``-token slice of their prompt plus its valid row count (see
+    ``models.prefill_chunk``)."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError("chunked prefill serves token models")
+    return {"inputs": sds((batch, chunk), torch.int32),
+            "chunk_len": sds((batch,), torch.int32)}
+
+
+def kv_pool_specs(mesh, *, n_pages: int, page_tokens: int, word_width: int,
+                  axis: str = "kv") -> tuple[torch.Tensor, shd.KVShardPlan]:
+    """No-allocation stand-in for the serving engine's paged KV pool over
+    a ``kv`` mesh (``launch.mesh.make_kv_mesh``): the whole storage
+    ``[num_words, word_width]`` f32 and its page-aligned shard plan (each
+    mesh device holds ``plan.words_per_shard`` of the words). Mirrors
+    ``PagedPool.create(mesh=...)``: the pages round up to whole pages per
+    shard and ``sharding.kv_pool_spec``'s checks apply. The word is not
+    padded: the port drops the JAX package's lane padding."""
+    plan = shd.kv_shard_plan(int(mesh.shape[axis]), n_pages=n_pages,
+                             page_tokens=page_tokens)
+    plan = shd.kv_pool_spec(mesh, num_words=plan.num_words,
+                            page_tokens=page_tokens, axis=axis)
+    return sds((plan.num_words, word_width), torch.float32), plan
+
+
+def kv_split_partial_specs(cfg: ArchConfig, batch: int,
+                           num_kv_splits: int) -> dict:
+    """No-allocation stand-ins for the split-KV decode intermediates of one
+    attention layer: stage 1's partial accumulators ``acc_partial`` [B,
+    splits, H, D] and its (running max, denominator) stats
+    ``lse_partial`` [B, splits, H, 2], both f32, which stage 2 combines.
+    The shapes are read off ``kernels.kv_multiport.split_partial_shapes``,
+    where the kernel's wrapper reads them, so a drift there shows here."""
+    from repro_torch.kernels.kv_multiport import split_partial_shapes
+
+    acc, stats = split_partial_shapes(batch, cfg.n_heads, cfg.head_dim_,
+                                      num_kv_splits)
+    return {"acc_partial": sds(acc, torch.float32),
+            "lse_partial": sds(stats, torch.float32)}
 
 
 def params_shapes(cfg: ArchConfig) -> PyTree:

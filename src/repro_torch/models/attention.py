@@ -34,10 +34,11 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
 
 def _project_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
                  head_dim: int, compute_dtype):
-    b, s, _ = x.shape
-    q = L.linear(p["wq"], x, compute_dtype).reshape(b, s, n_heads, head_dim)
-    k = L.linear(p["wk"], x, compute_dtype).reshape(b, s, n_kv_heads, head_dim)
-    v = L.linear(p["wv"], x, compute_dtype).reshape(b, s, n_kv_heads, head_dim)
+    q = S.split_heads(L.linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+    k = S.split_heads(L.linear(p["wk"], x, compute_dtype), n_kv_heads,
+                      head_dim)
+    v = S.split_heads(L.linear(p["wv"], x, compute_dtype), n_kv_heads,
+                      head_dim)
     return q, k, v
 
 
@@ -137,8 +138,8 @@ def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor,
     q, k = _apply_pos(q, k, positions, pos_embed, rope_theta,
                       mrope_sections)
     out = chunked_causal_attention(q, k, v, q_chunk=q_chunk)
-    cache_k[:, :s] = k.to(cache_k.dtype)
-    cache_v[:, :s] = v.to(cache_v.dtype)
+    S.write_prefix(cache_k, k)
+    S.write_prefix(cache_v, v)
     out = L.linear(p["wo"], out.reshape(b, s, n_heads * head_dim),
                    compute_dtype)
     return out, cache_k, cache_v
@@ -216,6 +217,10 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
             seq_tile=seq_tile, length_mask=length_mask,
             dynamic_grid=dynamic_grid, num_kv_splits=num_kv_splits,
             mesh=mesh, mesh_axis=mesh_axis, port_mix=port_mix)
+    elif kernel_mode == "reference" and S.is_dtensor(cache_k):
+        # a sharded serving step: each rank attends over its own shard
+        out, cache_k, cache_v = S.decode_attention(
+            q1, cache_k, cache_v, new_k, new_v, cache_len)
     elif kernel_mode == "reference":
         from repro_torch.kernels import ref
         out, cache_k, cache_v = ref.decode_attention_ref(

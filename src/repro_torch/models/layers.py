@@ -66,7 +66,7 @@ def linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    y = x @ w
+    y = S.matmul(x, w)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.api import hint
 from repro_torch.models import layers as L
 
 
@@ -133,7 +134,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, compute_dtype=None
 
     buf = torch.zeros((b, e + 1, cap, d), dtype=xf.dtype, device=dev)
     buf[rows, e_idx, p_idx] = tok
-    buf = buf[:, :e]                                           # [B, E, C, d]
+    buf = hint(buf[:, :e], "moe_buf")                          # [B, E, C, d]
 
     # --- batched expert FFN ----------------------------------------------------
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
@@ -142,7 +143,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, compute_dtype=None
     hg = torch.einsum("becd,edf->becf", buf, wg)
     hu = torch.einsum("becd,edf->becf", buf, wu)
     h = L.swiglu(hg, hu)
-    out_buf = torch.einsum("becf,efd->becd", h, wd)            # [B, E, C, d]
+    out_buf = hint(torch.einsum("becf,efd->becd", h, wd), "moe_buf")
 
     # --- combine (the MoE "read port", row-local) -----------------------------
     y_sorted = out_buf[rows, torch.clamp(e_idx, max=e - 1), p_idx]  # [B, n, d]

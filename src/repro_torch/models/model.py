@@ -33,6 +33,7 @@ families); ``tm_shift``/``cm_shift`` [L, B, d] and ``tm_state``
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -42,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as S
+from repro_torch.distributed.api import hint
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -49,6 +51,17 @@ PyTree = Any
 
 
 KV_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def _on_mesh(entry):
+    """``entry(params, ...)`` with the plain tensors it makes (positions,
+    rotary tables, masks) counting as replicated where the parameters are
+    DTensors, as the train step runs the loss (sharded serving steps)."""
+    @functools.wraps(entry)
+    def wrapped(params, *args, **kwargs):
+        with S.plain_is_replicated(params["final_norm"]["scale"]):
+            return entry(params, *args, **kwargs)
+    return wrapped
 
 
 def _hybrid_counts(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -126,7 +139,7 @@ def _unbind_layers(tree: PyTree, n: int) -> list[PyTree]:
 
 def _head(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.linear(params["lm_head"], x, cfg.cdtype)
+    return hint(L.linear(params["lm_head"], x, cfg.cdtype), "logits")
 
 
 def _stem(params: PyTree, cfg: ArchConfig, inputs: torch.Tensor,
@@ -140,7 +153,7 @@ def _stem(params: PyTree, cfg: ArchConfig, inputs: torch.Tensor,
     if cfg.pos_embed == "sinusoidal":
         pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, offset, x.device)
         x = x + pe.to(x.dtype)
-    return x
+    return hint(x, "hidden")
 
 
 def _default_positions(cfg: ArchConfig, batch: dict, b: int, s: int,
@@ -262,7 +275,7 @@ def _put(state: PyTree, at: tuple, got: PyTree) -> None:
     if isinstance(state, dict):
         for k in state:
             _put(state[k], at, got[k])
-    elif got.data_ptr() != state[at].data_ptr():
+    elif not S.same_view(got, state[at]):
         state[at].copy_(got)
 
 
@@ -278,6 +291,7 @@ def _mamba_prefill(p: dict, x, cfg: ArchConfig, conv: dict,
     return x
 
 
+@_on_mesh
 def prefill(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict
             ) -> tuple[PyTree, torch.Tensor]:
     """Process a prompt of length S, writing its K,V at [0, S) of the
@@ -365,6 +379,7 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
     return state
 
 
+@_on_mesh
 def decode_step(params: PyTree, cfg: ArchConfig, state: PyTree, batch: dict,
                 *, kernel_mode: str = "reference", seq_tile: int = 128,
                 length_mask: bool = True, dynamic_grid: bool = False,

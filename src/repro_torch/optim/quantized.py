@@ -35,7 +35,10 @@ f32 = torch.float32
 
 def _blockify(x: torch.Tensor) -> torch.Tensor:
     """Block along the LAST axis: [..., n] -> [..., ceil(n/B), B], zero
-    padded."""
+    padded. A DTensor whose ranks do not each hold whole blocks of the
+    last axis gathers it first (its state's block dim then replicates:
+    ``sharding.quant_spec``)."""
+    x = S.whole_unless_even(x, -1, BLOCK)
     *lead, n = x.shape
     pad = (-n) % BLOCK
     if pad:

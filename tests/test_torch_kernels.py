@@ -228,3 +228,16 @@ def test_cuda_wrappers_refuse_unsupported_inputs():
     with pytest.raises(ValueError):
         kvmp.fused_append_attend(q.half(), c, c, n, n, lens, seq_tile=8)
 
+
+
+def test_chunk_padded_rows_at_the_live_bound(rng):
+    """The falsifying draw of the JAX suite's
+    ``test_fused_prefill_chunk_property`` (ROADMAP C3): rows with an empty
+    chunk sit at the largest offset, and ``live_len`` equals the largest
+    ``offset + chunk_len``. Such a row still attends from its query
+    position ``offset``, whose tile the bound cuts off; the plain version
+    follows the Pallas kernel's bound there, as it does everywhere."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _check_chunk(_chunk_case(rng, 3, 1, 5, 1, 2, 8, [0, 4, 4],
+                                 [0, 0, 0]), 2e-5, seq_tile=4, live_len=4)

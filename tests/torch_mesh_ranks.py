@@ -212,3 +212,82 @@ def optimizer_state_placements(optimizer: str, device: str = "cpu") -> dict:
         or shd.spec_of(x) != spec]
     return {"before": _placed_as(s.state, specs), "after_bad": bad,
             "ce": ces}
+
+
+def staged_steps(device: str = "cpu") -> dict:
+    """On (data 2, model 2), ranks on the host-staged backend: the
+    launcher's build (``build_on_mesh``, reduced tinyllama, batch 8 x 16)
+    and one step from its state, without hints and under the dry run's
+    activation hints; each step's loss, ce and the collectives this rank
+    staged in it."""
+    from repro_torch.launch import dryrun, train
+    mesh = make_mesh((2, 2), ("data", "model"), devices=device)
+    args = train.parse_args(["--arch", "tinyllama-1.1b", "--reduced",
+                             "--device", device, "--batch", str(BATCH),
+                             "--seq", str(SEQ)])
+    s = train.build_on_mesh(args, mesh)
+    batch = s.loader.get(0)
+    hints = dryrun._act_specs(s.cfg, mesh, shd.Rules.for_mesh(mesh), BATCH,
+                              seq_len=SEQ)
+    out = {}
+    for what, step in (("plain", s.step),
+                       ("hinted", dryrun._with_hints(s.step, hints))):
+        hoststaged.reset_stats()
+        _, m = step(s.state, batch)
+        staged = dict(hoststaged.STATS)
+        out[what] = {"loss": float(m["loss"]), "ce": float(m["ce"]),
+                     "staged": staged}
+    return out
+
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 4
+
+
+def serving_ids(vocab: int) -> np.ndarray:
+    """The token ids of ``sharded_serving``: a prompt, then one id for each
+    decode step."""
+    return np.random.default_rng(1).integers(
+        0, vocab, (SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS)).astype(np.int32)
+
+
+def sharded_serving(params_npz: str, out_npz: str,
+                    device: str = "cpu") -> dict:
+    """Reduced tinyllama's ``prefill`` of ``SERVE_PROMPT`` tokens and
+    ``SERVE_STEPS`` ``decode_step``s on (data 2, model 2) under the dry
+    run's decode rules (the caches' positions split over ``data``, their
+    kv heads over ``model``), against the same on one device, both from
+    the JAX package's initial parameters: each logits' largest |diff|.
+    Rank 0 writes the sharded logits to ``out_npz`` (``logits0`` the
+    prefill's, then one for each step)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decode_step, init_decode_state, prefill
+    cfg = _cfg()
+    mesh = make_mesh((2, 2), ("data", "model"), devices=device)
+    rules = dryrun.decode_rules(cfg, mesh)
+    with np.load(params_npz) as f:
+        params = params_from_numpy(_nest(dict(f)), cfg, device)
+    b, prompt, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    ids = torch.from_numpy(serving_ids(cfg.vocab)).to(device)
+    state = init_decode_state(cfg, b, prompt + steps, device)
+    pspecs = shd.param_pspecs(params, mesh, rules, cfg=cfg)
+    sspecs = shd.decode_state_pspecs(cfg, mesh, rules, state, batch=b)
+
+    def on_mesh(tree, specs):
+        return T.tree_map(lambda x, s: shd.place(x, mesh, s, from_rank=None),
+                          tree, specs)
+
+    def run(p, st):
+        st, lg = prefill(p, cfg, st, {"inputs": ids[:, :prompt]})
+        out = [lg]
+        for t in range(prompt, prompt + steps):
+            st, lg = decode_step(p, cfg, st, {"inputs": ids[:, t:t + 1]})
+            out.append(lg)
+        return out, st
+
+    sharded, st = run(on_mesh(params, pspecs), on_mesh(state, sspecs))
+    sharded = [a.full_tensor() for a in sharded]
+    plain, _ = run(params, state)
+    _save_rank0(out_npz, **{f"logits{i}": a for i, a in enumerate(sharded)})
+    return {"diff": [float((a - b_).abs().max())
+                     for a, b_ in zip(sharded, plain)],
+            "cache": str(st["cache_k"].placements)}
