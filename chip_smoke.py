@@ -163,7 +163,22 @@ Phases (any failure exits non-zero before the final line):
    in one 8b step after the first; then ``run_cell`` of every shape of
    tinyllama-1.1b on the 256-rank mesh and of llama3-405b ``train_4k`` on
    the 512-rank one, each ``ok`` and traced on the card's path, printed
-   as predictions;
+   as predictions; the ``train_4k`` cells of deepseek-moe-16b, rwkv6-3b
+   and zamba2-7b on the 256-rank mesh, each traced by ``python -m
+   repro_torch.launch.dryrun`` in a process of its own started after the
+   build (the recurrent families' eager scans trace for minutes on the
+   host's cores while the card runs the other phases), each ``ok`` on the
+   card's path, read once 8f is done;
+8e. deepseek-moe-16b (2 of 28 layers), rwkv6-3b (8 of 32) and zamba2-7b
+   (7 of 81 slots) at their published widths (bf16, AdamW, batch 4 x
+   512: phases 7f and 7i's runs) over (data 2, model 2), 4 ranks, one job
+   each: one step, its ce within 4e-2 of that phase's one-device first
+   step; each rank's step seconds, peak memory and staged bytes;
+8f. the five non-dense families in f32 at 2 layers (zamba2-7b at 7
+   slots, so that its shared attention block runs), TF32 off, batch 4 x
+   256: one sharded step on (data 2, model 2) == the same step on one
+   device, computed in this process before the ranks start (ce rtol
+   1e-5, ``lm_head/w`` atol 2e-5 / rtol 1e-4);
 9. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -2160,12 +2175,13 @@ def train_f32_identity(card: str) -> dict:
     return out
 
 
-def train_moe(card: str) -> None:
+def train_moe(card: str) -> float:
     """deepseek-moe-16b at its published widths (d 2048, 64 routed experts
     top-6 of 1408 + 2 shared, vocab 102400, bf16), its depth cut to 2 of
     its 28 layers (the 28 with AdamW's f32 moments do not fit one card),
     batch 4 x seq 512: 2 AdamW steps through ``launch.train``'s build,
-    losses finite, moe_aux > 0, and slots dropped at capacity."""
+    losses finite, moe_aux > 0, and slots dropped at capacity. Returns the
+    first step's ce (phase 8e's one-device reference)."""
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import mlp
     moe_ffn = mlp.moe_ffn
@@ -2217,6 +2233,7 @@ def train_moe(card: str) -> None:
           f"counters all 0 ({card})")
     del state, s, batch, metrics
     torch.cuda.empty_cache()
+    return recs[0]["ce"]
 
 
 # ---- phase 7i: the attention-free and hybrid families (ROADMAP A9b) ------
@@ -2636,15 +2653,17 @@ def ssm_f32_identities(dev) -> dict:
     return errs
 
 
-def train_ssm_families(card: str) -> None:
+def train_ssm_families(card: str) -> dict:
     """rwkv6-3b at 8 of its 32 layers and zamba2-7b at 7 of its 81 layer
     slots (one group of 6 and its shared block, one tail block), published
     widths, bf16, seed-0 weights, the chain task at batch 4 x seq 512: 2
     AdamW steps of each through ``launch.train``'s parse and build, losses
-    finite, no kernel launched."""
+    finite, no kernel launched. Returns each arch's first ce (phase 8e's
+    one-device reference)."""
     from repro_torch import tree as T
     from repro_torch.configs import registry
     from repro_torch.kernels import reset_launch_counts
+    first_ce = {}
     for arch, slots in SSM_TRAIN_SLOTS.items():
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2672,12 +2691,15 @@ def train_ssm_families(card: str) -> None:
               f"{recs[1]['grad_norm']:.4g}, {times[0]:.3f} / {times[1]:.3f} s "
               f"a step, peak memory {_gib(torch.cuda.max_memory_allocated())};"
               f" launch counters all 0 ({card})")
+        first_ce[arch] = recs[0]["ce"]
         del state, s, batch, metrics
         torch.cuda.empty_cache()
+    return first_ce
 
 
-def ssm_families(dev, card: str) -> dict:
-    """Phase 7i. Returns the kernels' errors by run."""
+def ssm_families(dev, card: str) -> tuple[dict, dict]:
+    """Phase 7i. Returns (the kernels' errors by run, the training steps'
+    first ce by arch)."""
     calls = ssm_full_width("zamba2-7b", dev, card)
     errs = {"zamba2_bf16": hybrid_rows(calls),
             "zamba2_call_f32": hybrid_call_f32(calls)}
@@ -2685,8 +2707,7 @@ def ssm_families(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     ssm_full_width("rwkv6-3b", dev, card)
     errs["zamba2_f32"] = ssm_f32_identities(dev)
-    train_ssm_families(card)
-    return errs
+    return errs, train_ssm_families(card)
 
 
 # ---- phase 7j: the paper's comparison designs (ROADMAP A2) ---------------
@@ -3017,13 +3038,46 @@ def kv_mesh_paths(dev, unsharded: dict, f32_tokens: dict) -> dict:
 # ---- phase 8: sharded training over a data x model mesh (ROADMAP A8b) ----
 
 MESH_TIMEOUT = 300              # seconds: each local job of ranks
-SHARDED_STEPS = 3               # full-width sharded AdamW steps
+SHARDED_STEPS = 2               # full-width sharded AdamW steps (8d holds
+                                # its trace to the second one's peak)
 # the JAX multidevice test's tolerances (tests/distributed/test_multidevice.py)
 MESH_CE_RTOL = 1e-5
 MESH_W_TOL = dict(atol=2e-5, rtol=1e-4)
 # the dry run's per-rank bytes (arguments + temporaries) against a measured
 # step's peak
 DRYRUN_PEAK_TOL = 0.15
+# the state leaves whose placements 8b and 8e print, where a model has them
+PLACEMENTS_SHOWN = ("params/lm_head/w", "opt/m/lm_head/w",
+                    "params/layers/attn/wk/w", "params/layers/moe/w_gate",
+                    "params/layers/tm/wr/w", "params/groups/mamba/in_x/w")
+# 8e: the full-width training cuts of phases 7f and 7i (layers), one AdamW
+# step each over (data 2, model 2), the three in one job of ranks (a second
+# step took the whole script past 15 minutes)
+FAMILY_TRAIN = {"deepseek-moe-16b": (MOE_TRAIN, F32_LAYERS),
+                **{a: (["--arch", a, *SSM_TRAIN[:-2]], n)
+                   for a, n in SSM_TRAIN_SLOTS.items()}}
+MESH_FAMILY_STEPS = 1
+FAMILY_F32_STEPS = 2
+# grad_norm: tests/test_torch_mesh_families.py's tolerance (RWKV6's
+# gradient is ill-conditioned: a sum split over ranks moves it further
+# than its ce)
+MESH_GRAD_NORM_RTOL = 2e-4
+# 8f: f32 at 2 layers (zamba2-7b at 8e's 7 slots: fewer leave out its
+# shared attention block), TF32 off, batch 4 x 256, all five in one job of
+# ranks, 2 steps: launch.train's warmup is then 1 step, so step 0's
+# learning rate is 0 and step 1 moves every parameter; each step's
+# grad_norm holds the gradients' size, the last lm_head/w their direction
+# (a first AdamW step at the full rate moves each weight by about the rate
+# whatever the size of its gradient, so a rounding difference in a
+# gradient near 0 would move a weight by more than lm_head/w's tolerance;
+# the CPU tests hold every family's backward to JAX's over 3 steps)
+FAMILY_F32 = {"deepseek-moe-16b": F32_LAYERS, "qwen2-vl-7b": F32_LAYERS,
+              "musicgen-large": F32_LAYERS, "rwkv6-3b": F32_LAYERS,
+              "zamba2-7b": SSM_TRAIN_SLOTS["zamba2-7b"]}
+# 8d: the dry run's train_4k cells of the moe, ssm and hybrid families, at
+# these depths (zamba2-7b's 7 slots hold its shared attention block)
+FAMILY_CELLS = {"deepseek-moe-16b": F32_LAYERS, "rwkv6-3b": F32_LAYERS,
+                "zamba2-7b": SSM_TRAIN_SLOTS["zamba2-7b"]}
 
 
 def _mesh_job(fn: str, world: int, module: str = "chip_smoke",
@@ -3053,21 +3107,36 @@ def _on_mesh(argv: list, mesh, cfg_edit=None):
         train.arch_config = orig
 
 
-def rank_full_width(argv: list, steps: int) -> dict:
-    """8b, on each rank: ``launch.train.build_on_mesh`` over (data 2,
-    model 2) and ``steps`` AdamW steps; each step's ce, grad_norm, host
-    time (all ranks start it together, it ends at the card's sync) and
-    the collectives this rank staged; the rank's peak memory and state
-    bytes."""
+def rank_families_full_width(runs: dict, steps: int) -> dict:
+    """8e, on each rank: ``rank_full_width`` of each arch of ``runs`` (arch
+    -> [argv, layers]) in turn, what the one before left freed first."""
+    import gc
+    out = {}
+    for arch, (argv, layers) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = rank_full_width(argv, steps, layers)
+    return out
+
+
+def rank_full_width(argv: list, steps: int, layers: int | None = None
+                    ) -> dict:
+    """8b and 8e, on each rank: ``launch.train.build_on_mesh`` over (data
+    2, model 2), the depth cut to ``layers`` when given, and ``steps``
+    AdamW steps; each step's ce, grad_norm, host time (all ranks start it
+    together, it ends at the card's sync) and the collectives this rank
+    staged; the rank's peak memory and state bytes."""
     import torch.distributed as dist
 
     from repro_torch import tree as T
     from repro_torch.distributed import hoststaged
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mesh = make_mesh((2, 2), ("data", "model"))
-    _, s = _on_mesh(argv, mesh)
+    _, s = _on_mesh(argv, mesh, None if layers is None else
+                    lambda c: dataclasses.replace(c, n_layers=layers))
     state, s.state = s.state, None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3092,10 +3161,9 @@ def rank_full_width(argv: list, steps: int) -> dict:
                      "step_peak": torch.cuda.max_memory_allocated()})
     local = sum(x.to_local().numel() * x.element_size()
                 for x in T.leaves(state))
-    placed = {k: str(v.placements) for k, v in (
-        ("lm_head/w", state["params"]["lm_head"]["w"]),
-        ("m lm_head/w", state["opt"]["m"]["lm_head"]["w"]),
-        ("wk", state["params"]["layers"]["attn"]["wk"]["w"]))}
+    placed = {shd.path_str(p): str(x.placements)
+              for p, x in T.leaves_with_path(state)
+              if shd.path_str(p) in PLACEMENTS_SHOWN}
     return {"steps": recs, "init_s": init_s,
             "peak": max(peak, torch.cuda.max_memory_allocated()),
             "state_bytes": local, "placements": placed}
@@ -3187,16 +3255,116 @@ def rank_elastic(argv: list, ckpt_dir: str) -> dict:
             "placement": str(state["params"]["lm_head"]["w"].placements)}
 
 
+def _f32_steps(s) -> tuple:
+    """``FAMILY_F32_STEPS`` steps of a ``launch.train`` build from its state:
+    (the last state, each step's ce, each step's grad_norm)."""
+    state, ces, norms = s.state, [], []
+    s.state = None
+    for i in range(FAMILY_F32_STEPS):
+        state, m = s.step(state, s.loader.get(i))
+        ces.append(float(m["ce"]))
+        norms.append(float(m["grad_norm"]))
+    return state, ces, norms
+
+
+def rank_family_identities(refs: dict) -> dict:
+    """8f, on each of 4 ranks, f32, TF32 off, batch 4 x 256: for each arch
+    of ``refs`` (arch -> [layers, the path of the one-device steps' ce,
+    grad_norm and last ``lm_head/w``, which the parent computed]),
+    ``FAMILY_F32_STEPS`` sharded steps on (data 2, model 2); rank 0 holds
+    them to the one-device steps (``_f32_steps``): each step's ce at rtol
+    1e-5 and grad_norm at 2e-4, the last ``lm_head/w`` at 2e-5 / 1e-4."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch, (layers, ref) in refs.items():
+        t0 = time.perf_counter()
+        _, s = _on_mesh(_f32_argv(arch), mesh, _f32_cut(layers))
+        state, ces, norms = _f32_steps(s)
+        w = state["params"]["lm_head"]["w"].full_tensor()
+        row = {"ce": ces, "grad_norm": norms, "s": time.perf_counter() - t0}
+        del state, s
+        if dist.get_rank() == 0:
+            one = torch.load(ref)
+            row["ce_one"], row["grad_norm_one"] = one["ce"], one["grad_norm"]
+            row["ce_diff"] = _agree(torch.tensor(ces), torch.tensor(one["ce"]),
+                                    0.0, MESH_CE_RTOL, f"8f {arch} ce")
+            row["grad_norm_diff"] = _agree(
+                torch.tensor(norms), torch.tensor(one["grad_norm"]), 0.0,
+                MESH_GRAD_NORM_RTOL, f"8f {arch} grad_norm")
+            row["w_diff"] = _agree(w, one["w"].to(w.device),
+                                   MESH_W_TOL["atol"], MESH_W_TOL["rtol"],
+                                   f"8f {arch} lm_head/w")
+            del one
+        del w
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out[arch] = row
+    return out
+
+
+def _f32_argv(arch: str) -> list:
+    return ["--arch", arch, "--device", "cuda", "--batch",
+            str(TRAIN_F32_BATCH), "--seq", str(TRAIN_F32_SEQ), "--steps",
+            str(FAMILY_F32_STEPS)]
+
+
+def family_f32_references(root: Path) -> dict:
+    """8f's one-device steps, in this process before the ranks start (a
+    one-device f32 AdamW step of deepseek-moe-16b at 2 layers holds about
+    45 GB: beside 4 ranks it does not fit the card): arch -> [layers, the
+    saved steps' ce, grad_norm and last ``lm_head/w``]."""
+    import gc
+    root.mkdir(parents=True, exist_ok=True)
+    refs = {}
+    for arch, layers in FAMILY_F32.items():
+        _, one = _train_setup(_f32_argv(arch), _f32_cut(layers))
+        state, ces, norms = _f32_steps(one)
+        path = root / f"{arch}.pt"
+        torch.save({"ce": ces, "grad_norm": norms,
+                    "w": state["params"]["lm_head"]["w"].cpu()}, path)
+        refs[arch] = [layers, str(path)]
+        del one, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
 def _staged_line(staged: dict) -> str:
     return ", ".join(f"{k} x{n} {b / 2**20:.1f} MiB"
                      for k, (n, b) in sorted(staged.items()))
+
+
+def _print_cell(rec: dict, card: str, cut: str = "") -> None:
+    if rec["status"] != "ok" or rec["traced_on"] != "cuda":
+        raise AssertionError(f"8d: dry run {rec['arch']} x {rec['shape']} x "
+                             f"{rec['mesh']}: {rec['status']} on "
+                             f"{rec['traced_on']}: "
+                             f"{rec.get('traceback', '')}")
+    m, o = rec["memory"], rec["ops"]
+    coll = ", ".join(f"{k} {v / 2**30:.3f} GiB"
+                     for k, v in o["collective_bytes"].items() if v)
+    print(f"dry run 8d [prediction, {rec['chips']} ranks, traced on "
+          f"{rec['traced_on']}, {rec['trace_s']:.1f} s{cut}] {rec['arch']} x "
+          f"{rec['shape']} x {rec['mesh']}: {rec['status']}; a rank's "
+          f"arguments {_gib(m['argument_bytes'])}, temporaries "
+          f"{_gib(m['temp_bytes'])}, dot_flops {o['dot_flops']:.4g}, "
+          f"collective bytes {coll or 'none'} ({card})")
 
 
 def dry_run(card: str, r0: dict) -> None:
     """8d: 8b's step traced on fake CUDA tensors as rank 0 of a counting
     world of 4, held to rank 0's staged collectives (exact) and its peak
     in a step after the first (15 %); then the dry run's cells of
-    tinyllama-1.1b and llama3-405b ``train_4k`` on 512 ranks."""
+    tinyllama-1.1b, llama3-405b ``train_4k`` on 512 ranks, and the
+    ``train_4k`` cells of the moe, ssm and hybrid families, at their
+    published widths and 2 layers (``FAMILY_CELLS``' for those families):
+    which rule a layer meets does not depend on the depth; the full depths
+    are the sweep's (``python -m repro_torch.launch.dryrun --all``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import registry
@@ -3241,32 +3409,120 @@ def dry_run(card: str, r0: dict) -> None:
           f"{_gib(last['step_peak'])} ({_gib(last['held'])} held as it "
           f"started): x{ratio:.4f} (limit "
           f"{DRYRUN_PEAK_TOL}); dot_flops {ops['dot_flops']:.4g} ({card})")
-    out = ROOT / "build" / "chip_smoke" / "dryrun"
-    cells = [("tinyllama-1.1b", c.name, "single") for c in
+    cells = [("tinyllama-1.1b", c.name, "single", F32_LAYERS) for c in
              applicable_shapes(registry.get("tinyllama-1.1b"))]
-    for arch, shape, mk in cells + [("llama3-405b", "train_4k", "multi")]:
-        rec = dryrun.run_cell(arch, shape, mk, str(out), force=True)
-        if rec["status"] != "ok" or rec["traced_on"] != "cuda":
-            raise AssertionError(f"8d: dry run {arch} x {shape} x {mk}: "
-                                 f"{rec['status']} on {rec['traced_on']}: "
-                                 f"{rec.get('traceback', '')}")
-        m, o = rec["memory"], rec["ops"]
-        coll = ", ".join(f"{k} {v / 2**30:.3f} GiB"
-                         for k, v in o["collective_bytes"].items() if v)
-        print(f"dry run 8d [prediction, {rec['chips']} ranks, traced on "
-              f"{rec['traced_on']}, {rec['trace_s']:.1f} s] {arch} x {shape} "
-              f"x {mk}: {rec['status']}; a rank's arguments "
-              f"{_gib(m['argument_bytes'])}, temporaries "
-              f"{_gib(m['temp_bytes'])}, dot_flops {o['dot_flops']:.4g}, "
-              f"collective bytes {coll or 'none'} ({card})")
+    cells += [("llama3-405b", "train_4k", "multi", F32_LAYERS)]
+    cells += [(a, "train_4k", "single", n) for a, n in FAMILY_CELLS.items()]
+    cut_cells(card, ROOT / "build" / "chip_smoke" / "dryrun", cells)
 
 
-def sharded_training(card: str, one_device: dict) -> None:
+def cut_cells(card: str, out: Path, cells: list) -> None:
+    """The dry run's cells (arch, shape, mesh, layers) at their published
+    widths, the depth cut to ``layers``: each ``ok``, traced on the card's
+    path."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    get = registry.get
+    for arch, shape, mk, layers in cells:
+        registry.get = lambda a, **kw: dataclasses.replace(get(a, **kw),
+                                                           n_layers=layers)
+        try:
+            rec = dryrun.run_cell(arch, shape, mk, str(out), force=True)
+        finally:
+            registry.get = get
+        _print_cell(rec, card, f", {layers} of {get(arch).n_layers} layers")
+
+
+def _vals(xs: list) -> str:
+    return ", ".join(f"{x:.7f}" for x in xs)
+
+
+def _secs(rank: dict, i: int) -> str:
+    return f"{rank['steps'][i]['s']:.3f}"
+
+
+def family_training(card: str, family_ce: dict) -> None:
+    """8e: deepseek-moe-16b, rwkv6-3b and zamba2-7b at their published
+    widths and phases 7f / 7i's depth cuts over (data 2, model 2), 4
+    ranks on the card, the three in one job: one AdamW step each, its ce
+    within 4e-2 of that phase's one-device first step. 8f: the five
+    non-dense families in f32 at 2 layers (zamba2-7b at 7 slots), TF32
+    off, 2 steps (lr 0 in the first): sharded == one device (each step's
+    ce rtol 1e-5 and grad_norm 2e-4, the last ``lm_head/w`` 2e-5 / 1e-4),
+    the one-device steps in this process first, then the five in one job
+    of ranks."""
+    import gc
+    import shutil
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = 4
+    t0 = time.perf_counter()
+    jobs = _mesh_job("rank_families_full_width", n, steps=MESH_FAMILY_STEPS,
+                     runs={a: [argv + ["--steps", str(MESH_FAMILY_STEPS)],
+                               layers]
+                           for a, (argv, layers) in FAMILY_TRAIN.items()})
+    for arch, (_, layers) in FAMILY_TRAIN.items():
+        ranks = [job[arch] for job in jobs]
+        r0 = ranks[0]
+        ce, want = r0["steps"][0]["ce"], family_ce[arch]
+        if abs(ce - want) > BF16_TOL:
+            raise AssertionError(f"8e {arch}: sharded step 1 ce {ce} != one "
+                                 f"device's {want} (limit {BF16_TOL})")
+        if any(r["steps"][i]["ce"] != r0["steps"][i]["ce"]
+               for r in ranks for i in range(MESH_FAMILY_STEPS)):
+            raise AssertionError(f"8e {arch}: ranks disagree on the ce")
+        for i, rec in enumerate(r0["steps"]):
+            print(f"mesh 8e [{arch}, published widths, {layers} layers, "
+                  f"bf16, AdamW, batch 4 x 512, data 2 x model 2, {n} ranks "
+                  f"on the card] step {i}: ce {rec['ce']:.4f}, grad_norm "
+                  f"{rec['grad_norm']:.4f}; seconds by rank "
+                  f"{', '.join(_secs(r, i) for r in ranks)}"
+                  f"; rank 0 staged {_staged_line(rec['staged'])} ({card})")
+        staged = [sum(b for _, b in r["steps"][-1]["staged"].values())
+                  for r in ranks]
+        print(f"mesh 8e {arch}: step 1 ce {ce:.6f} vs one device "
+              f"{want:.6f} (|diff| {abs(ce - want):.3g}, limit {BF16_TOL}); "
+              f"peak memory by rank {', '.join(_gib(r['peak']) for r in ranks)}"
+              f"; staged bytes in step {MESH_FAMILY_STEPS - 1} by rank "
+              f"{', '.join(f'{b / 2**30:.2f} GiB' for b in staged)}; state "
+              f"bytes by rank "
+              f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; init "
+              f"{r0['init_s']:.1f} s; placements {r0['placements']} ({card})")
+    print(f"mesh 8e: {', '.join(FAMILY_TRAIN)} in one job of {n} ranks, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "f32_refs"
+    refs = family_f32_references(root)
+    print(f"mesh 8f: the one-device f32 steps in {time.perf_counter() - t0:.1f}"
+          f" s ({card})")
+    t0 = time.perf_counter()
+    got = _mesh_job("rank_family_identities", n, refs=refs)[0]
+    for arch, row in got.items():
+        print(f"mesh 8f [{arch}, f32, {FAMILY_F32[arch]} layers, TF32 off, "
+              f"batch {TRAIN_F32_BATCH} x {TRAIN_F32_SEQ}, "
+              f"{FAMILY_F32_STEPS} steps, lr 0 in step 0]: sharded (data 2, "
+              f"model 2) == one device: ce {_vals(row['ce'])} / "
+              f"{_vals(row['ce_one'])} (|diff| {row['ce_diff']:.3g}, rtol "
+              f"{MESH_CE_RTOL}), grad_norm {_vals(row['grad_norm'])} / "
+              f"{_vals(row['grad_norm_one'])} (|diff| "
+              f"{row['grad_norm_diff']:.3g}, rtol {MESH_GRAD_NORM_RTOL}), "
+              f"last lm_head/w |diff| {row['w_diff']:.3g} ({MESH_W_TOL}); "
+              f"sharded steps with their build {row['s']:.1f} s ({card})")
+    print(f"mesh 8f: {', '.join(got)} in one job of {n} ranks, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
     """Phase 8: 8a the collective probe, 8b tinyllama-1.1b at its
     published widths over (data 2, model 2) with 4 ranks on the card,
     8c the f32 identities (sharded == one device, the compressed step's
     int8 pod all-reduce, the elastic restart on 2 ranks), 8d the dry run
-    held to 8b."""
+    held to 8b, 8e and 8f the non-dense families (``family_ce``: their
+    one-device first ce by arch)."""
     import gc
     import shutil
     n = 4
@@ -3360,6 +3616,7 @@ def sharded_training(card: str, one_device: dict) -> None:
           f"vs {sh['ce_next']:.7f} going on at (2, 2) (|diff| {d:.3g}, rtol "
           f"{MESH_CE_RTOL}); 8c in {time.perf_counter() - t0:.1f} s ({card})")
     dry_run(card, r0)
+    family_training(card, family_ce)
 
 
 def main() -> int:
@@ -3389,6 +3646,7 @@ def main() -> int:
         print(f"  ptxas {log.name.split('.')[0]}: {len(regs)} kernels, "
               f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
               f"{spill} bytes of spill stores")
+
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3520,7 +3778,8 @@ def main() -> int:
         for name, e in by_kernel.items():
             errs[name][what] = e
     family_entry_points(dev)
-    for what, by_kernel in ssm_families(dev, card).items():
+    ssm_errs, family_ce = ssm_families(dev, card)
+    for what, by_kernel in ssm_errs.items():
         for name, e in by_kernel.items():
             errs[name][what] = e
     torch.cuda.empty_cache()
@@ -3539,9 +3798,9 @@ def main() -> int:
 
     one_device = train_full_width(card)
     train_f32_identity(card)
-    train_moe(card)
+    family_ce["deepseek-moe-16b"] = train_moe(card)
     torch.cuda.empty_cache()
-    sharded_training(card, one_device)
+    sharded_training(card, one_device, family_ce)
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

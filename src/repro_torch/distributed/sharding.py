@@ -684,12 +684,39 @@ def whole_unless_even(x, dim: int, unit: int):
 
 
 def split_heads(x, heads: int, head_dim: int):
-    """``x`` [B, S, heads * head_dim] as [B, S, heads, head_dim]. A DTensor
-    whose last dim is split finer than the heads (tp > n_kv_heads: the
-    GQA fallback's kv heads, which replicate over tp anyway) gathers that
-    dim first."""
-    b, s = x.shape[:2]
-    return whole_unless_even(x, -1, head_dim).reshape(b, s, heads, head_dim)
+    """``x`` [..., heads * head_dim] as [..., heads, head_dim]. A DTensor
+    whose last dim is split other than into whole heads (tp > n_kv_heads:
+    the GQA fallback's kv heads, which replicate over tp anyway; tp not
+    dividing RWKV6's or Mamba2's heads) gathers that dim first: a head is
+    never cut across ranks."""
+    return whole_unless_even(x, -1, head_dim).reshape(*x.shape[:-1], heads,
+                                                      head_dim)
+
+
+class _GradWholeUnlessEven(torch.autograd.Function):
+    """The identity, whose gradient goes through :func:`whole_unless_even`
+    on its last dim."""
+
+    @staticmethod
+    def forward(ctx, y, unit: int):
+        ctx.unit = unit
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_unless_even(g, -1, ctx.unit), None
+
+
+def merge_heads(x, shape: tuple):
+    """``x`` [..., H, K] as ``shape`` [..., H * K], the inverse of
+    :func:`split_heads`. The fold's backward cuts the gradient's last dim
+    into heads, so on a DTensor that gradient is gathered first unless it
+    splits into whole heads evenly (a gradient split on the columns, from a
+    column-parallel gate, while tp does not divide the heads)."""
+    y = x.reshape(shape)
+    if not is_dtensor(y):
+        return y
+    return _GradWholeUnlessEven.apply(y, x.shape[-1])
 
 
 def _position_share(cache) -> tuple[list, int]:
@@ -823,6 +850,71 @@ def local_rows(fn, x, rows):
     pl = _split_rows([None] * x.device_mesh.ndim, x.device_mesh, x.shape[0])
     return local_map(fn, out_placements=(pl,) * 3, in_placements=(pl, pl),
                      redistribute_inputs=True)(x, on_mesh_of(rows, x))
+
+
+def row_placements(x) -> list:
+    """Placements, one per mesh dim, of DTensor ``x``'s rows (dim 0): split
+    where ``x`` splits them, whole on every other mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements]
+
+
+def local_row_sum(fn, x):
+    """``fn(x)``, a sum over the rows of DTensor ``x`` (a tensor without
+    them), computed by each rank on its own rows and summed over the ranks
+    that split the rows: replicated on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = row_placements(x)
+    out = [Partial() if pl == Shard(0) else Replicate() for pl in rows]
+    return reduced(local_map(fn, out_placements=out, in_placements=(rows,),
+                             redistribute_inputs=True)(x))
+
+
+def local_recurrence(fn, q, k, v, log_w, state=None, bonus=None):
+    """``fn(q, k, v, log_w, state, bonus) -> (y, state')``, a recurrence
+    local to a (row, head) (``linear_scan``'s chunked form: q, k [B, T, H,
+    K], log_w [B, T, H, K] or [B, T, H], v [B, T, H, V]; its step form:
+    the same without T), with the carried state [B, H, K, V] and the bonus
+    [H, K] optional (None), on each rank's own rows and heads. The rows
+    and heads are split as ``v`` splits them, every other dim whole: a
+    mesh dim that splits neither (tp over more ranks than heads, where the
+    head projections gathered their columns) computes its ranks' heads
+    alike. The state takes the rows' and heads' placements, the bonus the
+    heads', and its gradient is summed over the ranks that split the
+    rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    heads = v.ndim - 2
+    xpl, spl, bpl, bgrad = [], [], [], []
+    for pl in v.placements:
+        if pl == Shard(0):
+            xpl.append(pl), spl.append(pl)
+            bpl.append(Replicate()), bgrad.append(Partial())
+        elif pl.is_shard() and pl.dim % v.ndim == heads:
+            xpl.append(Shard(heads)), spl.append(Shard(1))
+            bpl.append(Shard(0)), bgrad.append(Shard(0))
+        else:
+            xpl.append(Replicate()), spl.append(Replicate())
+            bpl.append(Replicate()), bgrad.append(Replicate())
+    extra = [(x, p, g) for x, p, g in ((state, spl, spl), (bonus, bpl, bgrad))
+             if x is not None]
+
+    def body(ql, kl, vl, lwl, *rest):
+        it = iter(rest)
+        return fn(ql, kl, vl, lwl, next(it) if state is not None else None,
+                  next(it) if bonus is not None else None)
+
+    return local_map(
+        body, out_placements=(xpl, spl),
+        in_placements=((xpl,) * 4 + tuple(p for _, p, _ in extra)),
+        in_grad_placements=((xpl,) * 4 + tuple(g for _, _, g in extra)),
+        redistribute_inputs=True)(
+        *(on_mesh_of(x, v) for x in (q, k, v, log_w)),
+        *(on_mesh_of(x, v) for x, _, _ in extra))
 
 
 def local_lookup(w, ids):

@@ -28,12 +28,18 @@ overflow-free, unlike the exp(cum)*exp(-cum) factorization.
 Shapes: q, k, log_w: [B, T, H, K]; v: [B, T, H, V]. Returns y: [B, T, H, V]
 and the final state [B, H, K, V] (f32). ``log_w`` is log-decay (<= 0),
 applied to the state *before* absorbing step t's outer product.
+
+On DTensors (sharded training, the dry run) both forms run on each rank's
+own rows and heads (``sharding.local_recurrence``): the recurrence is
+local to a (row, head), as attention is, so the folds and products below
+only ever see local tensors.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as S
 from repro_torch.models.layers import bmm_f32
 
 F32 = torch.float32
@@ -82,6 +88,12 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     Returns:
       (y [B, T, H, V] in v's dtype, final_state [B, H, K, V] f32)
     """
+    if S.is_dtensor(v):
+        return S.local_recurrence(
+            lambda q_, k_, v_, lw, st, u: chunked_linear_attention(
+                q_, k_, v_, lw, chunk=chunk, bonus_u=u, initial_state=st,
+                scalar_decay=scalar_decay),
+            q, k, v, log_w, state=initial_state, bonus=bonus_u)
     if scalar_decay:
         return _chunked_scalar_decay(q, k, v, log_w, chunk=chunk,
                                      initial_state=initial_state)
@@ -210,6 +222,11 @@ def linear_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, log_w: [B, H, K]; v: [B, H, V]; state: [B, H, K, V].
     Returns (y [B, H, V] in v's dtype, new_state [B, H, K, V] in f32).
     """
+    if S.is_dtensor(v):
+        return S.local_recurrence(
+            lambda q_, k_, v_, lw, st, u: linear_attention_step(
+                q_, k_, v_, lw, st, bonus_u=u),
+            q, k, v, log_w, state=state, bonus=bonus_u)
     qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
     w = torch.exp(log_w.to(F32))
     outer = kf[..., :, None] * vf[..., None, :]        # [B,H,K,V]

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import RwkvConfig
+from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models.linear_scan import (chunked_linear_attention,
                                             linear_attention_step)
@@ -74,18 +75,19 @@ def _head_norm_gate(p: dict, y: torch.Tensor, g: torch.Tensor,
     yf = y.to(F32)
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + NORM_EPS) * p["ln_scale"].to(F32)
-    return (yf.reshape(out_shape) * L.silu(g).to(F32)).to(dtype)
+    return (S.merge_heads(yf, out_shape) * L.silu(g).to(F32)).to(dtype)
 
 
-def _projections(p: dict, x: torch.Tensor, xx: torch.Tensor, shape: tuple,
+def _projections(p: dict, x: torch.Tensor, xx: torch.Tensor, heads: tuple,
                  compute_dtype):
-    """r, k, v in ``shape`` (heads split), the gate g and the log decay."""
+    """r, k, v and the log decay split into ``heads`` (H, K), and the gate
+    g."""
     xr, xk, xv, xw, xg = (_mix(x, xx, p["mix"][i]) for i in range(5))
-    r = L.linear(p["wr"], xr, compute_dtype).reshape(shape)
-    k = L.linear(p["wk"], xk, compute_dtype).reshape(shape)
-    v = L.linear(p["wv"], xv, compute_dtype).reshape(shape)
+    r = S.split_heads(L.linear(p["wr"], xr, compute_dtype), *heads)
+    k = S.split_heads(L.linear(p["wk"], xk, compute_dtype), *heads)
+    v = S.split_heads(L.linear(p["wv"], xv, compute_dtype), *heads)
     g = L.linear(p["wg"], xg, compute_dtype)
-    return r, k, v, g, _log_decay(p, xw).reshape(shape)
+    return r, k, v, g, S.split_heads(_log_decay(p, xw), *heads)
 
 
 def time_mix_apply(p: dict, x: torch.Tensor, cfg: RwkvConfig, *,
@@ -96,8 +98,8 @@ def time_mix_apply(p: dict, x: torch.Tensor, cfg: RwkvConfig, *,
     state [B, H, K, K] f32)."""
     b, t, d = x.shape
     h, hd = d // cfg.head_dim, cfg.head_dim
-    r, k, v, g, lw = _projections(p, x, _shift(x, shift_state),
-                                  (b, t, h, hd), compute_dtype)
+    r, k, v, g, lw = _projections(p, x, _shift(x, shift_state), (h, hd),
+                                  compute_dtype)
     y, final_state = chunked_linear_attention(
         r, k, v, lw, chunk=la_chunk, bonus_u=p["u"], initial_state=ssm_state)
     y = _head_norm_gate(p, y, g, (b, t, d), x.dtype)
@@ -114,8 +116,8 @@ def time_mix_step(p: dict, x: torch.Tensor, cfg: RwkvConfig, *, shift_state,
     b, _, d = x.shape
     h, hd = d // cfg.head_dim, cfg.head_dim
     x0 = x[:, 0]
-    r, k, v, g, lw = _projections(p, x0, shift_state.to(x0.dtype),
-                                  (b, h, hd), compute_dtype)
+    r, k, v, g, lw = _projections(p, x0, shift_state.to(x0.dtype), (h, hd),
+                                  compute_dtype)
     y, new_state = linear_attention_step(r, k, v, lw, ssm_state,
                                          bonus_u=p["u"])
     y = _head_norm_gate(p, y, g, (b, d), x.dtype)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models.linear_scan import (chunked_linear_attention,
                                             linear_attention_step)
@@ -75,6 +76,7 @@ def _conv(p: dict, x: torch.Tensor, state: torch.Tensor | None):
     """Depthwise causal conv. x: [B, T, C]; p['w']: [K, C]; the state is
     the last K-1 inputs. Returns (silu(conv(x)) [B, T, C], new state
     [B, K-1, C])."""
+    x = S.reduced(x)            # a projection's pending sum, before the bias
     w = p["w"].to(x.dtype)
     k = w.shape[0]
     pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
@@ -102,7 +104,7 @@ def _inputs(p: dict, x: torch.Tensor, conv_state: dict | None,
                     cs["B"])
     ci, ncc = _conv(p["conv_C"], L.linear(p["in_C"], x, compute_dtype),
                     cs["C"])
-    dt = softplus(L.linear(p["in_dt"], x, compute_dtype).to(F32)
+    dt = softplus(S.reduced(L.linear(p["in_dt"], x, compute_dtype)).to(F32)
                   + p["dt_bias"].to(F32))
     return z, xi, bi, ci, dt, {"x": ncx, "B": ncb, "C": ncc}
 
@@ -110,7 +112,7 @@ def _inputs(p: dict, x: torch.Tensor, conv_state: dict | None,
 def _out(p: dict, y, xh, z, shape, compute_dtype):
     """Skip, gate, norm and output projection."""
     y = y + xh * p["d_skip"].to(y.dtype)[..., :, None]
-    y = L.rmsnorm(p["norm"], y.reshape(shape) * L.silu(z))
+    y = L.rmsnorm(p["norm"], S.merge_heads(y, shape) * L.silu(z))
     return L.linear(p["out_proj"], y, compute_dtype)
 
 
@@ -127,7 +129,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig, *,
     a = -torch.exp(p["a_log"].to(F32))                            # [H]
     log_w = dt * a                                                # [B,T,H]
 
-    xh = xi.reshape(b, t, nheads, cfg.head_dim)
+    xh = S.split_heads(xi, nheads, cfg.head_dim)
     v = xh * dt[..., None].to(xh.dtype)
     k = bi[:, :, None, :].expand(b, t, nheads, cfg.state_dim)
     q = ci[:, :, None, :].expand(b, t, nheads, cfg.state_dim)
@@ -153,7 +155,7 @@ def mamba2_decode_step(p: dict, x: torch.Tensor, d_model: int,
     a = -torch.exp(p["a_log"].to(F32))
     log_w = (dt * a)[..., None].expand(b, nheads, cfg.state_dim)
 
-    xh = xi.reshape(b, nheads, cfg.head_dim)
+    xh = S.split_heads(xi, nheads, cfg.head_dim)
     v = xh * dt[..., None].to(xh.dtype)
     k = bi[:, None, :].expand(b, nheads, cfg.state_dim)
     q = ci[:, None, :].expand(b, nheads, cfg.state_dim)

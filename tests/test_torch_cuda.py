@@ -1364,3 +1364,33 @@ def test_sharded_step_on_one_card_matches_one_device(cuda_device, tmp_path):
     np.testing.assert_allclose(ranks[0]["ce"], [h["ce"] for h in one.history],
                                rtol=1e-5)
     assert "devices=2 (data 1 x model 2 on " in ranks[0]["lines"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [2.0, 0.5])
+def test_moe_dispatch_on_two_ranks_of_one_card(cuda_device, tmp_path,
+                                               capacity_factor):
+    """``mlp.moe_ffn`` of reduced deepseek-moe-16b (f32) on DTensors over
+    (data 1, model 2), 2 ranks on the card, the experts split over
+    ``model``: output, aux loss and every gradient within 1e-5 of the
+    plain call on the card, with and without capacity drops."""
+    ranks = _local_job("torch_mesh_ranks:moe_ffn_on_mesh", 2, tmp_path,
+                       shape=[1, 2], seed=3, capacity_factor=capacity_factor,
+                       device="cuda")
+    for r in ranks:
+        assert not {k: v for k, v in r.items() if not v <= 1e-5}, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 4e-2)])
+def test_scan_on_two_ranks_of_one_card(cuda_device, tmp_path, dtype, tol):
+    """``linear_scan``'s chunked forms and step on DTensors over (data 1,
+    model 2), 2 ranks on the card, heads over ``model``: in bf16 the
+    products take ``layers.bmm_f32``'s bf16-in, f32-out route on each
+    rank's local tensors (DTensor has no rule for it). Outputs, states and
+    gradients against the plain calls on the card."""
+    ranks = _local_job("torch_mesh_ranks:scan_on_mesh", 2, tmp_path,
+                       shape=[1, 2], seed=5, dtype=dtype, device="cuda")
+    for r in ranks:
+        assert len(r) == 3 * 8 - 1
+        assert not {k: v for k, v in r.items() if not v <= tol}, r

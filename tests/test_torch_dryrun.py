@@ -17,9 +17,10 @@ activation hints (``distributed/api.py``), the counting world
   whose positions do not split evenly over the mesh raises.
 * ``build_cell_fn`` at reduced widths runs train, prefill and decode of
   the dense family on a (2, 4) counting mesh; ``run_cell`` records the
-  MoE, hybrid and ssm cells it cannot run with their errors; ``main``
-  writes a record with the JAX record's keys.
+  MoE, hybrid and ssm cells ``ok`` and the JAX rules' own head mismatch
+  as an error; ``main`` writes a record with the JAX record's keys.
 """
+import dataclasses
 import json
 import os
 
@@ -186,36 +187,46 @@ def test_build_cell_fn_runs_the_dense_family_on_a_counting_mesh(kind, seq):
     assert ops["argument_bytes"] > 0 and ops["staged"]
 
 
+# a depth the CPU traces in seconds; the widths stay the published ones
+TRACE_LAYERS = 2
+
+
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-scout-17b-a16e",
                                   "rwkv6-3b"])
-def test_run_cell_records_the_cells_it_cannot_run(arch, tmp_path):
-    """Sharded MoE dispatch and the RWKV heads over tp are not ported to
-    DTensors (ROADMAP C); llama4-scout's 40 heads do not split 16 ways
-    (the JAX rules' own error). The record says so and the sweep goes
-    on."""
+def test_run_cell_records_moe_and_ssm_cells_ok_and_the_head_mismatch(
+        arch, tmp_path, monkeypatch):
+    """deepseek-moe-16b's dispatch runs on each rank's rows and experts and
+    rwkv6-3b's scan on each rank's rows and heads (its 40 heads do not
+    split 16 ways: their columns are gathered first), so their
+    ``train_4k`` cells record ``ok`` at the published widths, the depth
+    cut to 2 layers; llama4-scout's 40 heads do not split 16 ways in
+    attention, the JAX rules' own error, which the record keeps. A record
+    is read back, not rerun."""
+    get = registry.get
+    monkeypatch.setattr(registry, "get", lambda a, **kw: dataclasses.replace(
+        get(a, **kw), n_layers=TRACE_LAYERS))
     rec = dryrun.run_cell(arch, "train_4k", "single", str(tmp_path))
-    assert rec["status"] == "error" and rec["traceback"]
     assert rec["chips"] == 256 and rec["traced_on"] in ("cpu", "cuda")
-    want = {"deepseek-moe-16b": "AssertionError",
-            "llama4-scout-17b-a16e": "attention TP mesh/head mismatch",
-            "rwkv6-3b": "Cannot unflatten unevenly sharded tensor"}[arch]
-    assert want in rec["error"]
+    if arch == "llama4-scout-17b-a16e":
+        assert rec["status"] == "error" and rec["traceback"]
+        assert "attention TP mesh/head mismatch" in rec["error"]
+    else:
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["memory"]["argument_bytes"] > 0
+        assert rec["ops"]["dot_flops"] > 0 and rec["cost"]["flops"] > 0
     again = dryrun.run_cell(arch, "train_4k", "single", str(tmp_path))
     assert again == json.loads(json.dumps(rec))     # read back, not rerun
 
 
 def test_run_cell_records_a_hybrid_cell_with_its_status(tmp_path):
     """zamba2-7b's decode (13 shared attention blocks between 81 Mamba2
-    blocks) on 256 ranks: a record with a status, the bytes where it ran
-    and the error where it did not (torch 2.11 refuses its scan's fold
-    of a split head dim; this CPU's torch strides it)."""
+    blocks) on 256 ranks: ``ok``, with the bytes it holds and its FLOPs
+    (the scan's step runs on each rank's rows and heads)."""
     rec = dryrun.run_cell("zamba2-7b", "decode_32k", "single", str(tmp_path))
-    assert rec["status"] in ("ok", "error") and rec["kind"] == "decode"
-    if rec["status"] == "ok":
-        assert rec["memory"]["argument_bytes"] > 0
-        assert rec["ops"]["dot_flops"] > 0
-    else:
-        assert rec["error"] and rec["traceback"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["kind"] == "decode"
+    assert rec["memory"]["argument_bytes"] > 0
+    assert rec["ops"]["dot_flops"] > 0
 
 
 def test_main_writes_a_record_with_the_jax_keys(tmp_path):
@@ -258,6 +269,32 @@ def test_hinted_train_step_folds_no_split_middle_dim(monkeypatch):
             "hidden"] == shd.P("data", "model", None)
         dryrun.trace_cell(cfg, ShapeCell("train", 16, 8, "train"), mesh, rules)
     assert made == []
+
+
+@pytest.mark.parametrize("arch,edit", [
+    ("rwkv6-3b", {"rwkv": {"head_dim": 32}}),
+    ("zamba2-7b", {"ssm": {"head_dim": 64}})])
+def test_hinted_step_cuts_no_head_when_tp_exceeds_the_heads(arch, edit,
+                                                            monkeypatch):
+    """2 heads over a 4-way ``model`` axis: the head projections gather
+    their columns and the head merge gathers its gradient before the
+    backward cuts it into heads (torch 2.11 refuses to cut a split dim,
+    2.13 makes a strided shard or refuses as well): the hinted train step
+    traces and makes no strided shard."""
+    from torch.distributed.tensor import placement_types
+    made = []
+    init = placement_types._StridedShard.__init__
+
+    def spy(self, *args, **kwargs):
+        made.append(args)
+        init(self, *args, **kwargs)
+    monkeypatch.setattr(placement_types._StridedShard, "__init__", spy)
+    cfg = R._cfg(arch, edit)
+    with countgroup.world(4):
+        mesh = make_mesh((1, 4), ("data", "model"), devices="cpu")
+        ops = dryrun.trace_cell(cfg, ShapeCell("train", 16, 8, "train"),
+                                mesh, shd.Rules.for_mesh(mesh))
+    assert ops["dot_flops"] > 0 and made == []
 
 
 def test_adamw8bit_updates_a_param_whose_shards_split_a_block():

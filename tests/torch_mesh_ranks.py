@@ -1,5 +1,6 @@
-"""Rank bodies of tests/test_torch_multidevice.py and of the on-card mesh
-tests in tests/test_torch_cuda.py: each runs in every process of a local
+"""Rank bodies of tests/test_torch_multidevice.py,
+tests/test_torch_mesh_families.py and of the on-card mesh tests in
+tests/test_torch_cuda.py: each runs in every process of a local
 job (``repro_torch.launch.local_ranks``), imports no JAX, and returns a
 JSON-able result; rank 0 writes tensors to ``.npz`` files for the test.
 
@@ -8,6 +9,8 @@ Params arrive as an ``.npz`` of the JAX package's initial parameters
 model as the JAX reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -36,8 +39,16 @@ COMPRESSED = TrainConfig(peak_lr=3e-3, warmup_steps=3, total_steps=60,
                          grad_compression="int8_ef", n_pods=2)
 
 
-def _cfg():
-    return registry.get("tinyllama-1.1b", reduced=True)
+def _cfg(arch: str = "tinyllama-1.1b", edit: dict | None = None):
+    """The reduced config of ``arch`` with the fields of ``edit`` replaced
+    (a dict value replaces fields of that sub-config, e.g. ``{"rwkv":
+    {"head_dim": 32}}``)."""
+    cfg = registry.get(arch, reduced=True)
+    for field, value in (edit or {}).items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(cfg, field), **value)
+        cfg = dataclasses.replace(cfg, **{field: value})
+    return cfg
 
 
 def _nest(flat: dict) -> dict:
@@ -51,10 +62,11 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _setup(mesh, params_npz: str, tcfg: TrainConfig, seed: int, device: str):
+def _setup(mesh, params_npz: str, tcfg: TrainConfig, seed: int, device: str,
+           arch: str = "tinyllama-1.1b", edit: dict | None = None):
     """(cfg, state placed by the JAX rules, loader placing batches, step,
     state specs)."""
-    cfg = _cfg()
+    cfg = _cfg(arch, edit)
     with np.load(params_npz) as f:
         params = params_from_numpy(_nest(dict(f)), cfg, device)
     rules = shd.Rules.for_mesh(mesh)
@@ -237,6 +249,161 @@ def staged_steps(device: str = "cpu") -> dict:
         staged = dict(hoststaged.STATS)
         out[what] = {"loss": float(m["loss"]), "ce": float(m["ce"]),
                      "staged": staged}
+    return out
+
+
+def family_steps(cases: list, out_npz: str, steps: int, checks: list = (),
+                 device: str = "cpu") -> dict:
+    """``steps`` sharded steps of each case (a dict: ``name``, ``arch``,
+    ``edit`` of its reduced config, mesh ``shape`` over ("data", "model")
+    and the ``params`` ``.npz`` of its JAX initial parameters), every case
+    in this one world: each step's ce and grad_norm, and whether the state
+    is placed by ``train_state_pspecs`` before and after them. Rank 0
+    writes each case's ``lm_head/w`` after the last step to ``out_npz``
+    under the case's name. Then each of ``checks`` (a dict: ``name``,
+    ``fn``, the name of a rank body here, and its keyword arguments), under
+    its name."""
+    out, heads = {}, {}
+    for check in checks:
+        kw = {k: v for k, v in check.items() if k not in ("name", "fn")}
+        out[check["name"]] = globals()[check["fn"]](device=device, **kw)
+    for case in cases:
+        mesh = make_mesh(tuple(case["shape"]), ("data", "model"),
+                         devices=device)
+        _, state, loader, step, specs = _setup(
+            mesh, case["params"], PLAIN, 1, device, case["arch"],
+            case.get("edit"))
+        row = {"ce": [], "grad_norm": [], "placed": _placed_as(state, specs)}
+        for i in range(steps):
+            state, m = step(state, loader.get(i))
+            row["ce"].append(float(m["ce"]))
+            row["grad_norm"].append(float(m["grad_norm"]))
+        row["placed"] = row["placed"] and _placed_as(state, specs)
+        out[case["name"]] = row
+        heads[case["name"]] = state["params"]["lm_head"]["w"].full_tensor()
+    _save_rank0(out_npz, **heads)
+    return out
+
+
+def moe_ffn_on_mesh(shape: list, seed: int, capacity_factor: float,
+                    device: str = "cpu") -> dict:
+    """``mlp.moe_ffn`` of reduced deepseek-moe-16b's first layer (the
+    port's own seeded init, 2 shared experts, ``capacity_factor``) on
+    DTensors placed by the JAX rules over ``shape``
+    (data, model), against the same call on plain tensors: the largest
+    |diff| of the output, the aux loss and every gradient (of x and each
+    parameter, through ``moe_aux`` and a seeded cotangent), each over the
+    plain value's largest |value|."""
+    from repro_torch.models import init_params
+    from repro_torch.models import mlp
+    cfg = _cfg("deepseek-moe-16b",
+               {"moe": {"capacity_factor": capacity_factor}})
+    mesh = make_mesh(tuple(shape), ("data", "model"), devices=device)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device)
+    specs = shd.param_pspecs(params, mesh, shd.Rules.for_mesh(mesh), cfg=cfg)
+    layer = T.tree_map(lambda x: x[0], params["layers"]["moe"])
+    lspecs = T.tree_map(lambda s: shd.P(*tuple(s)[1:]),
+                        specs["layers"]["moe"])
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((BATCH, SEQ, cfg.d_model),
+                                             dtype=np.float32)).to(device)
+    cot = torch.from_numpy(rng.standard_normal((BATCH, SEQ, cfg.d_model),
+                                               dtype=np.float32)).to(device)
+    xspec = shd.P(shd.batch_axes(mesh, shd.Rules.for_mesh(mesh), BATCH),
+                  None, None)
+
+    def run(p, xx, g):
+        leaves = [t.detach().requires_grad_() for t in T.leaves(p)]
+        xx = xx.detach().requires_grad_()
+        with shd.plain_is_replicated(xx):
+            out, probs, gate_e = mlp.moe_ffn(T.unflatten(p, leaves), xx,
+                                             cfg.moe)
+            aux = mlp.moe_aux(probs, gate_e, cfg.moe)
+            grads = torch.autograd.grad((out * g).sum() + aux, [xx, *leaves])
+        return [out, aux, *grads]
+
+    plain = run(layer, x, cot)
+    sharded = run(T.tree_map(lambda t, s: shd.place(t, mesh, s), layer,
+                             lspecs),
+                  shd.place(x, mesh, xspec), shd.place(cot, mesh, xspec))
+    names = ["out", "aux", "x", *(shd.path_str(p) for p, _ in
+                                  T.leaves_with_path(layer))]
+    return _rel_diffs(names, sharded, plain)
+
+
+def _rel_diffs(names, sharded, plain) -> dict:
+    """Each DTensor's largest |diff| to its plain counterpart, over the
+    plain value's largest |value|."""
+    return {n: float((s.full_tensor().float() - p.float()).abs().max()
+                     / max(float(p.float().abs().max()), 1e-30))
+            for n, s, p in zip(names, sharded, plain)}
+
+
+def scan_on_mesh(shape: list, seed: int, dtype: str,
+                 device: str = "cpu") -> dict:
+    """``linear_scan``'s chunked form (the per-channel decay with the RWKV
+    bonus, and the scalar decay) and its step form on DTensors, rows over
+    ``data`` and heads over ``model`` of ``shape`` (the bonus replicated,
+    as the rules place RWKV's ``u``), with a carried state, against the
+    same calls on plain tensors: the largest |diff| of each output and
+    each gradient (seeded cotangents) over the plain value's largest
+    |value|. T = 40 over chunks of 16 takes the padded path."""
+    from repro_torch.models.linear_scan import (chunked_linear_attention,
+                                                linear_attention_step)
+    dt = getattr(torch, dtype)
+    mesh = make_mesh(tuple(shape), ("data", "model"), devices=device)
+    rng = np.random.default_rng(seed)
+    b, t, h, k = 4, 40, 4, 8
+
+    def draw(*dims, scale=1.0, f32=False):
+        x = torch.from_numpy(scale * rng.standard_normal(dims)
+                             .astype(np.float32)).to(device)
+        return x if f32 else x.to(dt)
+    x4, st, rows = shd.P("data", None, "model", None), \
+        shd.P("data", "model", None, None), shd.P("data", "model", None)
+    cases = {
+        "rwkv": (chunked_linear_attention, dict(chunk=16),
+                 [draw(b, t, h, k), draw(b, t, h, k), draw(b, t, h, k),
+                  -torch.exp(draw(b, t, h, k, f32=True)).to(dt),
+                  draw(b, h, k, k, f32=True), draw(h, k, scale=0.1)],
+                 [x4, x4, x4, x4, st, shd.P(None, None)], True),
+        "mamba": (chunked_linear_attention, dict(chunk=16, scalar_decay=True),
+                  [draw(b, t, h, k), draw(b, t, h, k), draw(b, t, h, k),
+                   -torch.exp(draw(b, t, h, f32=True)),
+                   draw(b, h, k, k, f32=True)],
+                  [x4, x4, x4, shd.P("data", None, "model"), st], False),
+        "step": (linear_attention_step, {},
+                 [draw(b, h, k), draw(b, h, k), draw(b, h, k),
+                  -torch.exp(draw(b, h, k, f32=True)),
+                  draw(b, h, k, k, f32=True), draw(h, k, scale=0.1)],
+                 [rows, rows, rows, rows, st, shd.P(None, None)], True),
+    }
+    out = {}
+    for name, (fn, kw, args, specs, bonus) in cases.items():
+        def run(xs, on_mesh):
+            xs = [x.detach().requires_grad_() for x in xs]
+            *main, state = xs[:5]
+            u = xs[5] if bonus else None
+            if fn is linear_attention_step:
+                y, s1 = fn(*main, state, bonus_u=u, **kw)
+            else:
+                y, s1 = fn(*main, initial_state=state, bonus_u=u, **kw)
+            gy = draw(*y.shape, f32=True)
+            gs = draw(*s1.shape, f32=True)
+            if on_mesh:
+                gy = shd.place(gy, mesh, shd.spec_of(y), from_rank=None)
+                gs = shd.place(gs, mesh, shd.spec_of(s1), from_rank=None)
+            loss = (y.float() * gy).sum() + (s1 * gs).sum()
+            return [y, s1, *torch.autograd.grad(loss, xs)]
+        state = rng.bit_generator.state
+        plain = run(args, False)
+        rng.bit_generator.state = state      # the same cotangents
+        sharded = run([shd.place(x, mesh, s) for x, s in zip(args, specs)],
+                      True)
+        names = ["y", "state", "q", "k", "v", "log_w", "state0", "u"]
+        out.update({f"{name} {k_}": v_ for k_, v_ in _rel_diffs(
+            names, sharded, plain).items()})
     return out
 
 
