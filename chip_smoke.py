@@ -139,12 +139,17 @@ Phases (any failure exits non-zero before the final line):
 8. sharded training over a data x model mesh (``launch.train``'s
    ``build_on_mesh``: DTensors placed by the JAX package's rules), with
    ranks that share the card (``launch.local_ranks``, one process each,
-   the host-staged gloo backend of ``distributed/hoststaged.py``):
+   the peer-memory group of ``distributed/peermem.py``, which
+   ``local_ranks`` chooses for ranks that share a card: each rank's slot
+   on the card mapped by every peer through CUDA IPC, no operand through
+   host memory); each rank asserts that its group is ``peermem`` and
+   reports the bytes it moved on the card (written to its slot, read from
+   the slots) and the write-fence-read-fence rounds:
 8a. 4 ranks: every collective DTensor issues, plain and functional, on
    CUDA tensors (f32 and int8 all-reduce, all-gather, reduce-scatter,
    all-to-all) == its local reduction;
 8b. tinyllama-1.1b at its published widths (bf16, AdamW, batch 8 x 1024)
-   over (data 2, model 2), 4 ranks: 3 steps, the first step's ce within
+   over (data 2, model 2), 4 ranks: 2 steps, the first step's ce within
    4e-2 of phase 7f's one-device first step; each step's time beside
    the recorded and this run's one-device step, each rank's peak memory and
    state bytes, and each collective's bytes a step;
@@ -158,7 +163,8 @@ Phases (any failure exits non-zero before the final line):
 8d. the dry run (``launch/dryrun.py``), in this process: 8b's step traced
    by ``launch.op_analysis`` on fake CUDA tensors as rank 0 of a counting
    world of 4 (``distributed/countgroup.py``), no hints: every collective's
-   calls and bytes == rank 0's host-staged tally of one 8b step exactly,
+   calls and bytes == rank 0's tally of one 8b step in its group's
+   ``STATS`` exactly,
    and the predicted arguments + temporaries within 15 % of rank 0's peak
    in one 8b step after the first; then ``run_cell`` of every shape of
    tinyllama-1.1b on the 256-rank mesh and of llama3-405b ``train_4k`` on
@@ -173,7 +179,7 @@ Phases (any failure exits non-zero before the final line):
    (7 of 81 slots) at their published widths (bf16, AdamW, batch 4 x
    512: phases 7f and 7i's runs) over (data 2, model 2), 4 ranks, one job
    each: one step, its ce within 4e-2 of that phase's one-device first
-   step; each rank's step seconds, peak memory and staged bytes;
+   step; each rank's step seconds, peak memory and collective bytes;
 8f. the five non-dense families in f32 at 2 layers (zamba2-7b at 7
    slots, so that its shared attention block runs), TF32 off, batch 4 x
    256: one sharded step on (data 2, model 2) == the same step on one
@@ -3037,6 +3043,21 @@ def kv_mesh_paths(dev, unsharded: dict, f32_tokens: dict) -> dict:
 
 # ---- phase 8: sharded training over a data x model mesh (ROADMAP A8b) ----
 
+class Laps:
+    """Prints each phase's seconds and the seconds since the script's
+    first lap clock started (before the kernels' build)."""
+
+    def __init__(self, card: str):
+        self.card, self.t0 = card, time.perf_counter()
+        self.t = self.t0
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - self.t:.1f} s ({now - self.t0:.1f} s "
+              f"since the start) ({self.card})")
+        self.t = now
+
+
 MESH_TIMEOUT = 300              # seconds: each local job of ranks
 SHARDED_STEPS = 2               # full-width sharded AdamW steps (8d holds
                                 # its trace to the second one's peak)
@@ -3084,13 +3105,33 @@ def _mesh_job(fn: str, world: int, module: str = "chip_smoke",
               **kwargs) -> list:
     """``fn`` (of this file unless ``module`` says) on ``world`` ranks that
     share the card (``launch.local_ranks``: one process each, the
-    host-staged backend); each rank's result, in rank order."""
+    peer-memory group it chooses for them); each rank's result, in rank
+    order."""
     from repro_torch.launch import local_ranks
     return local_ranks.run(f"{module}:{fn}", world, device="cuda",
                            kwargs=kwargs, timeout=MESH_TIMEOUT,
                            path=[str(ROOT)],
                            workdir=str(ROOT / "build" / "chip_smoke" /
                                        "ranks" / fn))
+
+
+def _expect_backend(name: str = "peermem") -> None:
+    """On a rank: its process group is ``name``'s (phase 8's ranks share
+    the card, so ``local_ranks`` gives them the peer-memory one)."""
+    import torch.distributed as dist
+    if dist.get_backend() != name:
+        raise AssertionError(f"rank {dist.get_rank()} joined "
+                             f"{dist.get_backend()!r}, not {name}")
+
+
+def rank_probe() -> dict:
+    """8a, on each rank: ``hoststaged.probe``'s collectives on CUDA
+    tensors over the peer-memory group, and the bytes they moved on the
+    card."""
+    from repro_torch.distributed import hoststaged, peermem
+    _expect_backend()
+    peermem.reset_stats()
+    return {"ok": hoststaged.probe("cuda"), "moved": dict(peermem.MOVED)}
 
 
 def _on_mesh(argv: list, mesh, cfg_edit=None):
@@ -3119,19 +3160,21 @@ def rank_families_full_width(runs: dict, steps: int) -> dict:
     return out
 
 
-def rank_full_width(argv: list, steps: int, layers: int | None = None
-                    ) -> dict:
+def rank_full_width(argv: list, steps: int, layers: int | None = None,
+                    backend: str = "peermem") -> dict:
     """8b and 8e, on each rank: ``launch.train.build_on_mesh`` over (data
     2, model 2), the depth cut to ``layers`` when given, and ``steps``
     AdamW steps; each step's ce, grad_norm, host time (all ranks start it
-    together, it ends at the card's sync) and the collectives this rank
-    staged; the rank's peak memory and state bytes."""
+    together, it ends at the card's sync), the collectives this rank
+    counted and the bytes they moved on the card; the rank's peak memory
+    and state bytes."""
     import torch.distributed as dist
 
     from repro_torch import tree as T
-    from repro_torch.distributed import hoststaged
+    from repro_torch.distributed import peermem
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
+    _expect_backend(backend)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mesh = make_mesh((2, 2), ("data", "model"))
@@ -3144,7 +3187,7 @@ def rank_full_width(argv: list, steps: int, layers: int | None = None
     for i in range(steps):
         batch = s.loader.get(i)
         dist.barrier()
-        hoststaged.reset_stats()
+        peermem.reset_stats()
         torch.cuda.synchronize()
         # a step after the first alone: its peak, without the draw of the
         # full parameters at init (phase 8d's prediction is held to it)
@@ -3157,7 +3200,8 @@ def rank_full_width(argv: list, steps: int, layers: int | None = None
         dt = time.perf_counter() - t0
         rec = _record(metrics)
         recs.append({"ce": rec["ce"], "grad_norm": rec["grad_norm"], "s": dt,
-                     "staged": dict(hoststaged.STATS), "held": held,
+                     "counted": dict(peermem.STATS),
+                     "moved": dict(peermem.MOVED), "held": held,
                      "step_peak": torch.cuda.max_memory_allocated()})
     local = sum(x.to_local().numel() * x.element_size()
                 for x in T.leaves(state))
@@ -3180,9 +3224,10 @@ def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.checkpoint import ckpt
-    from repro_torch.distributed import hoststaged
+    from repro_torch.distributed import peermem
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
+    _expect_backend()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = dist.get_rank()
@@ -3193,11 +3238,11 @@ def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
              ["--multi-pod", "--compress-grads"])):
         mesh = make_mesh(shape, axes)
         args, s = _on_mesh(argv + extra, mesh, _f32_cut(F32_LAYERS))
-        hoststaged.reset_stats()
+        peermem.reset_stats()
         state, m = s.step(s.state, s.loader.get(0))
-        staged = dict(hoststaged.STATS)
+        counted = dict(peermem.STATS)
         w = state["params"]["lm_head"]["w"].full_tensor()
-        row = {"ce": float(m["ce"]), "staged": staged}
+        row = {"ce": float(m["ce"]), "counted": counted}
         if rank == 0:
             orig = train.arch_config
             train.arch_config = lambda a: _f32_cut(F32_LAYERS)(orig(a))
@@ -3235,6 +3280,7 @@ def rank_elastic(argv: list, ckpt_dir: str) -> dict:
     from repro_torch.launch import specs as SP
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
+    _expect_backend()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh((2, 1), ("data", "model"))
@@ -3277,6 +3323,7 @@ def rank_family_identities(refs: dict) -> dict:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
+    _expect_backend()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh((2, 2), ("data", "model"))
@@ -3334,9 +3381,16 @@ def family_f32_references(root: Path) -> dict:
     return refs
 
 
-def _staged_line(staged: dict) -> str:
+def _counted_line(counted: dict) -> str:
     return ", ".join(f"{k} x{n} {b / 2**20:.1f} MiB"
-                     for k, (n, b) in sorted(staged.items()))
+                     for k, (n, b) in sorted(counted.items()))
+
+
+def _moved_line(moved: dict) -> str:
+    """A rank's bytes moved on the card through the peer-memory group."""
+    return (f"{moved.get('written', 0) / 2**20:.1f} MiB written to its slot, "
+            f"{moved.get('read', 0) / 2**20:.1f} MiB read from the slots, "
+            f"{moved.get('rounds', 0)} rounds")
 
 
 def _print_cell(rec: dict, card: str, cut: str = "") -> None:
@@ -3358,7 +3412,7 @@ def _print_cell(rec: dict, card: str, cut: str = "") -> None:
 
 def dry_run(card: str, r0: dict) -> None:
     """8d: 8b's step traced on fake CUDA tensors as rank 0 of a counting
-    world of 4, held to rank 0's staged collectives (exact) and its peak
+    world of 4, held to rank 0's counted collectives (exact) and its peak
     in a step after the first (15 %); then the dry run's cells of
     tinyllama-1.1b, llama3-405b ``train_4k`` on 512 ranks, and the
     ``train_4k`` cells of the moe, ssm and hybrid families, at their
@@ -3387,11 +3441,11 @@ def dry_run(card: str, r0: dict) -> None:
                                      batch)
     took = time.perf_counter() - t0
     last = r0["steps"][-1]
-    want, got = last["staged"], ops["staged"]
+    want, got = last["counted"], ops["staged"]
     if got != want:
         raise AssertionError(
-            "8d: the traced collectives differ from rank 0's staged ones: "
-            + "; ".join(f"{k}: traced {got.get(k)} staged {want.get(k)}"
+            "8d: the traced collectives differ from rank 0's counted ones: "
+            + "; ".join(f"{k}: traced {got.get(k)} counted {want.get(k)}"
                         for k in sorted(set(got) | set(want))
                         if got.get(k) != want.get(k)))
     predicted = ops["argument_bytes"] + ops["temp_bytes"]
@@ -3402,7 +3456,7 @@ def dry_run(card: str, r0: dict) -> None:
                              f"(x{ratio:.3f}, limit {DRYRUN_PEAK_TOL})")
     print(f"dry run 8d [8b's step traced on fake CUDA tensors, rank 0 of a "
           f"counting world of 4, {took:.1f} s]: collectives == rank 0's "
-          f"staged tally exactly ({_staged_line(got)}); predicted "
+          f"peermem tally exactly ({_counted_line(got)}); predicted "
           f"arguments {_gib(ops['argument_bytes'])} + temporaries "
           f"{_gib(ops['temp_bytes'])} = {_gib(predicted)} against rank 0's "
           f"peak in step {len(r0['steps']) - 1} alone "
@@ -3441,7 +3495,7 @@ def _secs(rank: dict, i: int) -> str:
     return f"{rank['steps'][i]['s']:.3f}"
 
 
-def family_training(card: str, family_ce: dict) -> None:
+def family_training(card: str, family_ce: dict, lap) -> None:
     """8e: deepseek-moe-16b, rwkv6-3b and zamba2-7b at their published
     widths and phases 7f / 7i's depth cuts over (data 2, model 2), 4
     ranks on the card, the three in one job: one AdamW step each, its ce
@@ -3477,19 +3531,21 @@ def family_training(card: str, family_ce: dict) -> None:
                   f"on the card] step {i}: ce {rec['ce']:.4f}, grad_norm "
                   f"{rec['grad_norm']:.4f}; seconds by rank "
                   f"{', '.join(_secs(r, i) for r in ranks)}"
-                  f"; rank 0 staged {_staged_line(rec['staged'])} ({card})")
-        staged = [sum(b for _, b in r["steps"][-1]["staged"].values())
-                  for r in ranks]
+                  f"; rank 0's collectives {_counted_line(rec['counted'])}; "
+                  f"rank 0 moved {_moved_line(rec['moved'])} ({card})")
+        counted = [sum(b for _, b in r["steps"][-1]["counted"].values())
+                   for r in ranks]
         print(f"mesh 8e {arch}: step 1 ce {ce:.6f} vs one device "
               f"{want:.6f} (|diff| {abs(ce - want):.3g}, limit {BF16_TOL}); "
               f"peak memory by rank {', '.join(_gib(r['peak']) for r in ranks)}"
-              f"; staged bytes in step {MESH_FAMILY_STEPS - 1} by rank "
-              f"{', '.join(f'{b / 2**30:.2f} GiB' for b in staged)}; state "
+              f"; collective bytes in step {MESH_FAMILY_STEPS - 1} by rank "
+              f"{', '.join(f'{b / 2**30:.2f} GiB' for b in counted)}; state "
               f"bytes by rank "
               f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; init "
               f"{r0['init_s']:.1f} s; placements {r0['placements']} ({card})")
     print(f"mesh 8e: {', '.join(FAMILY_TRAIN)} in one job of {n} ranks, "
           f"{time.perf_counter() - t0:.1f} s ({card})")
+    lap("8e")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3514,9 +3570,11 @@ def family_training(card: str, family_ce: dict) -> None:
     print(f"mesh 8f: {', '.join(got)} in one job of {n} ranks, "
           f"{time.perf_counter() - t0:.1f} s ({card})")
     shutil.rmtree(root, ignore_errors=True)
+    lap("8f")
 
 
-def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
+def sharded_training(card: str, one_device: dict, family_ce: dict,
+                     lap) -> None:
     """Phase 8: 8a the collective probe, 8b tinyllama-1.1b at its
     published widths over (data 2, model 2) with 4 ranks on the card,
     8c the f32 identities (sharded == one device, the compressed step's
@@ -3534,16 +3592,18 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
           f"allocated, {_gib(torch.cuda.memory_reserved())} reserved as the "
           f"ranks start ({card})")
     t0 = time.perf_counter()
-    probe = _mesh_job("probe", n, module="repro_torch.distributed.hoststaged")
-    bad = {r: [k for k, v in res.items() if not v]
+    probe = _mesh_job("rank_probe", n)
+    bad = {r: [k for k, v in res["ok"].items() if not v]
            for r, res in enumerate(probe)}
     if any(bad.values()):
         raise AssertionError(f"collectives on CUDA tensors disagree with "
                              f"their local reductions: {bad}")
-    print(f"mesh 8a [{n} ranks on the card, host-staged gloo]: "
-          f"{len(probe[0])} collectives on CUDA tensors == their local "
-          f"reductions on every rank ({', '.join(probe[0])}) "
+    print(f"mesh 8a [{n} ranks on the card, peer memory]: "
+          f"{len(probe[0]['ok'])} collectives on CUDA tensors == their local "
+          f"reductions on every rank ({', '.join(probe[0]['ok'])}); rank 0 "
+          f"moved {_moved_line(probe[0]['moved'])} "
           f"({time.perf_counter() - t0:.1f} s) ({card})")
+    lap("8a")
 
     t0 = time.perf_counter()
     argv = TRAIN + ["--steps", str(SHARDED_STEPS)]
@@ -3563,10 +3623,13 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
         print(f"mesh 8b [tinyllama-1.1b, published widths, bf16, AdamW, "
               f"batch 8 x 1024, data 2 x model 2, {n} ranks on the card] "
               f"step {i}: ce {rec['ce']:.4f}, grad_norm "
-              f"{rec['grad_norm']:.4f}, {rec['s']:.3f} s; rank 0 staged "
-              f"{_staged_line(rec['staged'])} ({card})")
-    per_rank = [sum(b for _, b in r["steps"][-1]["staged"].values())
+              f"{rec['grad_norm']:.4f}, {rec['s']:.3f} s; rank 0's "
+              f"collectives {_counted_line(rec['counted'])}; rank 0 moved "
+              f"{_moved_line(rec['moved'])} ({card})")
+    per_rank = [sum(b for _, b in r["steps"][-1]["counted"].values())
                 for r in ranks]
+    moved = [f"{_gib(r['steps'][-1]['moved'].get('written', 0))} / "
+             f"{_gib(r['steps'][-1]['moved'].get('read', 0))}" for r in ranks]
     print(f"mesh 8b: step 1 ce {ce:.6f} vs one device {one_device['ce']:.6f}"
           f" (|diff| {abs(ce - one_device['ce']):.3g}, limit {BF16_TOL}); "
           f"median of steps 1-{SHARDED_STEPS - 1} {steady:.3f} s against "
@@ -3575,13 +3638,16 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
           f"(x{steady / one_device['step_s']:.1f})"
           f"; peak memory by rank "
           f"{', '.join(_gib(r['peak']) for r in ranks)}; state bytes by rank "
-          f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; staged "
+          f"{', '.join(_gib(r['state_bytes']) for r in ranks)}; collective "
           f"bytes a step by rank "
-          f"{', '.join(f'{b / 2**30:.2f} GiB' for b in per_rank)}"
+          f"{', '.join(f'{b / 2**30:.2f} GiB' for b in per_rank)}, moved on "
+          f"the card by rank (written / read) "
+          f"{', '.join(moved)}"
           f"; peak in step {SHARDED_STEPS - 1} alone by rank "
           f"{', '.join(_gib(r['steps'][-1]['step_peak']) for r in ranks)}"
           f"; init {r0['init_s']:.1f} s; placements {r0['placements']}; job "
           f"{took:.1f} s ({card})")
+    lap("8b")
 
     t0 = time.perf_counter()
     root = ROOT / "build" / "chip_smoke" / "mesh_ckpt"
@@ -3591,11 +3657,11 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
     ident = _mesh_job("rank_f32_identities", n, argv=argv,
                       ckpt_dir=str(root))[0]
     sh, cp = ident["sharded"], ident["compressed"]
-    int8 = {k: v for k, v in cp["staged"].items()
+    int8 = {k: v for k, v in cp["counted"].items()
             if k.startswith("all_reduce int8 x2")}
     if not int8:
         raise AssertionError(f"compressed step: no int8 all-reduce across "
-                             f"the 2 pods; staged {cp['staged']}")
+                             f"the 2 pods; counted {cp['counted']}")
     print(f"mesh 8c [f32, {F32_LAYERS} of 22 layers, TF32 off, batch "
           f"{TRAIN_F32_BATCH} x {TRAIN_F32_SEQ}]: sharded (data 2, model 2) "
           f"== one device: ce {sh['ce']:.7f} / {sh['ce_one']:.7f} (|diff| "
@@ -3604,7 +3670,7 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
           f"data 1, model 2) == one device's 2-pod step: ce {cp['ce']:.7f} / "
           f"{cp['ce_one']:.7f} (|diff| {cp['ce_diff']:.3g}), lm_head/w "
           f"|diff| {cp['w_diff']:.3g}; the pods' int8 all-reduce "
-          f"{_staged_line(int8)} of rank 0's {_staged_line(cp['staged'])} "
+          f"{_counted_line(int8)} of rank 0's {_counted_line(cp['counted'])} "
           f"({card})")
     elastic = _mesh_job("rank_elastic", 2, argv=argv, ckpt_dir=str(root))
     d = _agree(torch.tensor(elastic[0]["ce"]), torch.tensor(sh["ce_next"]),
@@ -3615,8 +3681,10 @@ def sharded_training(card: str, one_device: dict, family_ce: dict) -> None:
           f"{elastic[0]['placement']}): next step ce {elastic[0]['ce']:.7f} "
           f"vs {sh['ce_next']:.7f} going on at (2, 2) (|diff| {d:.3g}, rtol "
           f"{MESH_CE_RTOL}); 8c in {time.perf_counter() - t0:.1f} s ({card})")
+    lap("8c")
     dry_run(card, r0)
-    family_training(card, family_ce)
+    lap("8d")
+    family_training(card, family_ce, lap)
 
 
 def main() -> int:
@@ -3634,10 +3702,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    lap = Laps(card)
     t0 = time.perf_counter()
     took = K.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"(nvcc per source: { {k: round(v, 1) for k, v in took.items()} })")
+    lap("1")
     for log in sorted(K._build.BUILD_DIR.glob("*.ptxas.txt")):
         text = log.read_text()
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -3662,6 +3732,7 @@ def main() -> int:
     errs["kv_decode_split_combine"] = {"combine": split_errs["combine"]}
     for name, e in errs.items():
         print(f"check {name}: agrees with its plain version {e}")
+    lap("2")
 
     found = {}      # kernel name -> (timing row, launches on its path)
     paths = {}      # path -> its launch counts
@@ -3717,6 +3788,7 @@ def main() -> int:
           f"({b1_long['bound_by']}); one launch of {clusters} clusters of "
           f"{c} blocks; clusters the card holds at once, by size: {fits}")
     del call
+    lap("3-5")
 
     counts, flash_errs, (q, k, v) = whole_prompt(dev)
     paths["whole prompt f32"] = counts
@@ -3765,9 +3837,11 @@ def main() -> int:
           + " (B4b is a programmatic dependent launch, not held against "
           "this floor: its cost on the path is on the split pair lines)")
 
+    lap("6, 9")
     f32_tokens = fused_equals_reference()
     split_equals_serial()
     chaos_open_loop()
+    lap("identities and chaos")
 
     torch.cuda.empty_cache()
     counts, cap = serve_moe()
@@ -3782,8 +3856,10 @@ def main() -> int:
     for what, by_kernel in ssm_errs.items():
         for name, e in by_kernel.items():
             errs[name][what] = e
+    lap("7a-7e, 7i")
     torch.cuda.empty_cache()
     paper_comparison(long_spec, dev, card)
+    lap("7j")
     torch.cuda.empty_cache()
     mesh_paths, mesh_errs = kv_mesh_paths(
         dev, {"kv_decode_append_attend": found["kv_decode_append_attend"][0],
@@ -3794,13 +3870,15 @@ def main() -> int:
     paths.update(mesh_paths)
     for name, e in mesh_errs.items():
         errs[name]["kv_mesh"] = e
+    lap("7k")
     torch.cuda.empty_cache()
 
     one_device = train_full_width(card)
     train_f32_identity(card)
     family_ce["deepseek-moe-16b"] = train_moe(card)
     torch.cuda.empty_cache()
-    sharded_training(card, one_device, family_ce)
+    lap("7f-7h")
+    sharded_training(card, one_device, family_ce, lap)
 
     rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -3830,6 +3908,7 @@ def main() -> int:
         + ", ".join(f"{p} x{n}" for p, n in r["launches_by_path"].items())
         + ")" for r in rows))
     print(json.dumps({"kernels": rows}))
+    lap("9-10")
     print(card)
     # the run used one device, whatever else the host shows
     print(json.dumps({"ok": True, "device": {

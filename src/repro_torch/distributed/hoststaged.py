@@ -1,17 +1,16 @@
-"""A process-group backend for ranks that share one card: each collective
-on CUDA tensors is staged through pinned host memory and run by gloo on
-the host, synchronously.
+"""A process-group backend that runs every collective through gloo on the
+host, synchronously, and counts it: CUDA operands are staged through
+pinned host memory, CPU operands go to gloo as they are.
 
-gloo's own CUDA path runs the plain ``torch.distributed`` collectives
-(``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-``all_to_all_single``, f32 and int8), but the functional collectives that
-DTensor issues crash it: 4 ranks on one NVIDIA H100 80GB HBM3 (700 W) in
-torch 2.11 segfault within a few ``_functional_collectives`` calls
-(``chip_smoke.py`` phase 8a probes both). NCCL refuses two ranks on one
-device. So every collective here copies its CUDA operands to pinned host
-tensors, waits for gloo's host collective, and copies the results back
-onto the card; the compute stays on the card. CPU operands go to gloo as
-they are.
+No job on cards chooses it (``peermem.choose_backend`` gives them NCCL, or
+the peer-memory group of ``distributed/peermem.py`` where ranks share a
+card); CPU jobs name it to count their collectives. It was built for ranks
+that share a card: gloo's own CUDA path runs the plain
+``torch.distributed`` collectives, but the functional collectives that
+DTensor issues crash it (4 ranks on one NVIDIA H100 80GB HBM3 in torch
+2.11 segfault within a few ``_functional_collectives`` calls), and NCCL
+refuses two ranks on one device. A process group written in Python, as
+this one and ``peermem``'s are, serves both APIs.
 
 ``probe()`` checks every collective DTensor issues, through the plain and
 the functional API, on the job's ranks (run it with

@@ -6,11 +6,12 @@ group and running the same function, as ``torchrun`` would start them.
 
 Each rank calls ``fn(**kwargs)`` after joining the group (a ``FileStore``
 in a fresh directory, so no port is fixed) and returns a JSON-able value;
-``run`` returns every rank's value in rank order. Ranks on the CPU talk
-over gloo, ranks on cards over the host-staged backend
-(``distributed/hoststaged.py``), so that several may share a card: rank
-``r`` computes on card ``r mod cards``. ``backend="hoststaged"`` puts CPU
-ranks on it too (it then only counts their collectives). A rank that
+``run`` returns every rank's value in rank order. Rank ``r`` computes on
+card ``r mod cards``. The backend is ``peermem.choose_backend``'s: gloo on
+the CPU, NCCL when each rank has a card of its own, and the peer-memory
+group (``distributed/peermem.py``) when ranks share a card. An explicit
+``backend=`` wins: ``"peermem"`` or ``"hoststaged"`` (whose collectives on
+CPU tensors are gloo's, counted) put CPU ranks on those groups. A rank that
 fails or a job that outlives ``timeout`` ends the whole job (no rank is
 left waiting in a collective) and raises with the failing rank's log.
 
@@ -39,6 +40,13 @@ def run(target: str, world: int, *, device: str = "cuda",
     """Run ``target`` (``"module:function"``) on ``world`` ranks; returns
     each rank's result. ``path`` adds directories to the ranks' import
     path (the package's ``src`` is always there)."""
+    if backend is None:
+        from repro_torch.distributed import peermem
+        cards = 0
+        if device == "cuda":
+            import torch
+            cards = torch.cuda.device_count()
+        backend = peermem.choose_backend(device, world, cards, world)
     work = Path(workdir or tempfile.mkdtemp(prefix="local_ranks_"))
     work.mkdir(parents=True, exist_ok=True)
     store = work / "store"
@@ -57,8 +65,7 @@ def run(target: str, world: int, *, device: str = "cuda",
             [sys.executable, "-m", "repro_torch.launch.local_ranks",
              "--target", target, "--rank", str(r), "--world", str(world),
              "--store", str(store), "--device", device, "--timeout",
-             str(timeout), "--out", str(out), "--backend",
-             backend or ("gloo" if device == "cpu" else "hoststaged")],
+             str(timeout), "--out", str(out), "--backend", backend],
             stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT,
             env=dict(env, LOCAL_RANKS_KWARGS=json.dumps(kwargs or {}))),
             log))
@@ -109,13 +116,20 @@ def _rank_main(argv=None) -> None:
         torch.cuda.set_device(a.rank % torch.cuda.device_count())
     else:                       # the host's cores shared among the ranks
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // a.world))
-    if a.backend == "hoststaged":
+    options = None
+    if a.backend == "peermem":
+        from repro_torch.distributed import peermem
+
+        peermem.register()
+        options = peermem.Options(device=a.device)
+    elif a.backend == "hoststaged":
         from repro_torch.distributed import hoststaged
 
         hoststaged.register()
     dist.init_process_group(a.backend, init_method=f"file://{a.store}",
                             rank=a.rank, world_size=a.world,
-                            timeout=datetime.timedelta(seconds=a.timeout))
+                            timeout=datetime.timedelta(seconds=a.timeout),
+                            pg_options=options)
     mod, fn = a.target.split(":")
     result = getattr(importlib.import_module(mod), fn)(
         **json.loads(os.environ["LOCAL_RANKS_KWARGS"]))

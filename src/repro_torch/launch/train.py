@@ -20,8 +20,11 @@ slices of its batch; on the mesh, each pod's own shard).
 mesh over the ``torchrun`` ranks and raises, naming the shape, when the
 job has another number of ranks; :func:`train_on_mesh` is everything after
 that, for any mesh (``launch.mesh.make_debug_mesh`` in the tests). Ranks
-talk over gloo: on the CPU directly, on cards through the host-staged
-backend (``distributed/hoststaged.py``), so several may share a card.
+join the backend ``distributed.peermem.choose_backend`` picks from
+``torchrun``'s ``LOCAL_WORLD_SIZE`` and ``WORLD_SIZE``: gloo on the CPU,
+NCCL with a card a rank, and the peer-memory group
+(``distributed/peermem.py``) where the ranks of one host share its cards;
+on cards no collective passes through host memory.
 """
 from __future__ import annotations
 
@@ -164,21 +167,26 @@ def build_on_mesh(args: argparse.Namespace, mesh) -> Setup:
 
 def init_ranks(args: argparse.Namespace) -> None:
     """Join ``torchrun``'s process group (env://) when it started this
-    process and none is joined yet: gloo for ``--device cpu``, else the
-    host-staged backend, with each rank on its local card modulo the
-    cards there are."""
+    process and none is joined yet, each rank on its local card modulo the
+    cards there are, over ``peermem.choose_backend``'s backend: gloo for
+    ``--device cpu``, NCCL with a card a rank, peer memory where ranks
+    share a card."""
     import torch.distributed as dist
+
+    from repro_torch.distributed import peermem
 
     if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
         return
     dev = _device.resolve(args.device)
-    backend = "gloo"
+    world = int(os.environ["WORLD_SIZE"])
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = peermem.choose_backend(
+        dev.type, int(os.environ.get("LOCAL_WORLD_SIZE", world)), cards,
+        world)
     if dev.type == "cuda":
-        from repro_torch.distributed import hoststaged
-
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
-                              % torch.cuda.device_count())
-        backend = hoststaged.register()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % cards)
+    if backend == peermem.NAME:
+        peermem.register()
     dist.init_process_group(backend, init_method="env://")
 
 

@@ -1331,22 +1331,66 @@ def test_bmm_f32_on_card_matches_the_cast_product(rng, cuda_device):
 
 # ---- sharded training: ranks that share the card (ROADMAP A8b) -------------
 
-def _local_job(target: str, world: int, tmp_path, **kwargs) -> list:
+def _local_job(target: str, world: int, tmp_path, backend=None,
+               **kwargs) -> list:
+    """A job of ``world`` ranks on the cards (``local_ranks``' backend:
+    peer memory where ranks share a card, NCCL with a card a rank, unless
+    ``backend`` names one)."""
     import os
 
     from repro_torch.launch import local_ranks
     return local_ranks.run(target, world, device="cuda", kwargs=kwargs,
                            timeout=300, workdir=str(tmp_path / "job"),
-                           path=[os.path.dirname(os.path.abspath(__file__))])
+                           path=[os.path.dirname(os.path.abspath(__file__))],
+                           backend=backend)
 
 
 @pytest.mark.cuda
 def test_host_staged_collectives_on_two_ranks_of_one_card(cuda_device,
                                                           tmp_path):
     """Every collective DTensor issues, plain and functional, on CUDA
-    tensors of 2 ranks that share the card, == its local reduction."""
-    got = _local_job("repro_torch.distributed.hoststaged:probe", 2, tmp_path)
+    tensors of 2 ranks that share the card, through the host-staged
+    backend named explicitly, == its local reduction."""
+    got = _local_job("repro_torch.distributed.hoststaged:probe", 2, tmp_path,
+                     backend="hoststaged")
     assert all(all(r.values()) for r in got) and len(got[0]) == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_memory_collectives_on_ranks_of_one_card(cuda_device, tmp_path,
+                                                      world):
+    """``world`` ranks on the card (``peermem`` named, so that a host of
+    several cards tests it too): every collective DTensor issues == its
+    local reduction, and all-reduce, all-gather, reduce-scatter and
+    all-to-all of CUDA tensors copy nothing between host and device
+    (``torch.profiler``'s memcpy events) and take no pinned host memory."""
+    for r in _local_job("torch_mesh_ranks:host_traffic", world, tmp_path,
+                        backend="peermem"):
+        assert r["backend"] == "peermem"
+        assert len(r["probe"]) == 10 and all(r["probe"].values()), r["probe"]
+        assert r["copies"] == 0 and r["pinned"] == {}, r
+
+
+@pytest.mark.cuda
+def test_host_staging_shows_in_the_host_traffic_check(cuda_device, tmp_path):
+    """The same check over the host-staged backend counts its copies and
+    pinned blocks: the check above can see host staging."""
+    for r in _local_job("torch_mesh_ranks:host_traffic", 2, tmp_path,
+                        backend="hoststaged"):
+        assert r["backend"] == "hoststaged" and all(r["probe"].values())
+        assert r["copies"] > 0 and r["pinned"], r
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_on_two_cards(cuda_device, tmp_path):
+    """Two ranks on two cards join NCCL (``local_ranks``' own choice), and
+    every collective DTensor issues == its local reduction."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    for r in _local_job("torch_mesh_ranks:host_traffic", 2, tmp_path):
+        assert r["backend"] == "nccl"
+        assert len(r["probe"]) == 10 and all(r["probe"].values()), r["probe"]
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package, and the
-launcher's command line is checked without building a model."""
+"""The port stands alone: no module of ``src/repro_torch`` and neither
+``chip_smoke.py`` nor ``chip_mesh.py`` imports JAX or anything of the JAX
+package, and the launcher's command line is checked without building a
+model."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_mesh.py"]
 
 
 def _forbidden(name: str) -> bool:

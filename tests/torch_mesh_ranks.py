@@ -147,24 +147,185 @@ def elastic_restore(ckpt_dir: str, device: str = "cpu") -> dict:
 
 
 def compressed_steps(params_npz: str, out_npz: str, steps: int,
-                     device: str = "cpu") -> dict:
-    """int8_ef over 2 pods on (pod 2, data 2, model 2): the first step's
-    ce and ``lm_head/w``, ``steps`` steps' ce, and the collectives staged
-    in the first step (the pods' int8 all-reduce among them)."""
-    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), devices=device)
+                     device: str = "cpu", shape: list = (2, 2, 2),
+                     head_after: int = 0) -> dict:
+    """int8_ef over 2 pods on ``shape`` (pod 2, data, model): ``steps``
+    steps' ce and grad_norm, ``lm_head/w`` after step ``head_after`` (from
+    0), and the collectives staged in the first step (the pods' int8
+    all-reduce among them)."""
+    mesh = make_mesh(tuple(shape), ("pod", "data", "model"), devices=device)
     _, state, loader, step, specs = _setup(mesh, params_npz, COMPRESSED, 2,
                                            device)
-    out = {"placed": _placed_as(state, specs), "ce": []}
+    out = {"placed": _placed_as(state, specs), "ce": [], "grad_norm": []}
     for i in range(steps):
         hoststaged.reset_stats()
         state, m = step(state, loader.get(i))
         out["ce"].append(float(m["ce"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
         if i == 0:
             out["staged"] = dict(hoststaged.STATS)
+        if i == head_after:
             _save_rank0(out_npz,
                         lm_head=state["params"]["lm_head"]["w"].full_tensor())
     out["placed_after"] = _placed_as(state, specs)
     return out
+
+
+def mesh_step(params_npz: str, out_npz: str, shape: list, steps: int,
+              device: str = "cpu") -> dict:
+    """``steps`` steps on ``shape`` (data, model) from the JAX initial
+    parameters: the process group's backend, each step's ce, grad_norm and
+    the collectives counted in it, and a digest of every replicated leaf's
+    bits after the last (equal on every rank when each all-reduce gives
+    every rank the same bits); rank 0 writes ``lm_head/w`` after the last
+    step to ``out_npz``."""
+    import hashlib
+    mesh = make_mesh(tuple(shape), ("data", "model"), devices=device)
+    _, state, loader, step, _ = _setup(mesh, params_npz, PLAIN, 1, device)
+    out = {"backend": dist.get_backend(), "ce": [], "grad_norm": [],
+           "staged": []}
+    for i in range(steps):
+        hoststaged.reset_stats()
+        state, m = step(state, loader.get(i))
+        out["ce"].append(float(m["ce"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["staged"].append(dict(hoststaged.STATS))
+    digest = hashlib.sha256()
+    for x in T.leaves(state):
+        if all(isinstance(p, Replicate) for p in x.placements):
+            digest.update(x.to_local().detach().cpu().numpy().tobytes())
+    _save_rank0(out_npz, lm_head=state["params"]["lm_head"]["w"].full_tensor())
+    out["replicated"] = digest.hexdigest()
+    return out
+
+
+def chunked_collectives(slot_bytes: int, device: str = "cpu") -> dict:
+    """Collectives of operands larger than the slot on a peer-memory group
+    made with a slot of ``slot_bytes``, against the same collectives on a
+    gloo group and against the rank-order result computed here from every
+    rank's input (each rank draws them all from seeds). Returns
+    {check: passed} and the all-reduce's digest (equal on every rank)."""
+    import hashlib
+
+    from repro_torch.distributed import peermem
+    r, n = dist.get_rank(), dist.get_world_size()
+    ranks = list(range(n))
+    peermem.register()
+    pm = dist.new_group(ranks, backend="peermem",
+                        pg_options=peermem.Options(device=device,
+                                                   slot_bytes=slot_bytes))
+    gloo = dist.new_group(ranks, backend="gloo")
+    dev = torch.device(device)
+    elems = 7 * slot_bytes // 8          # 3.5 slots of f32
+
+    def normal(rank):
+        g = torch.Generator().manual_seed(100 + rank)
+        return torch.randn(elems, generator=g).to(dev)
+
+    def ints(rank, dtype):
+        # integers: any order of the sum gives the same bits; int8 wraps
+        g = torch.Generator().manual_seed(200 + rank)
+        return torch.randint(-100, 100, (elems,), generator=g).to(dev, dtype)
+
+    def both(fn, make):
+        a, b = make(), make()
+        fn(a, group=pm)
+        fn(b, group=gloo)
+        return a, b
+
+    ok = {}
+    peermem.reset_stats()
+    x = normal(r)
+    dist.all_reduce(x, group=pm)
+    rounds = peermem.MOVED["rounds"]
+    want = normal(0)
+    for i in range(1, n):
+        want += normal(i)
+    ok["all_reduce f32 == rank-order sum"] = torch.equal(x, want)
+    ok["all_reduce in 4 rounds"] = rounds == 4
+    for dt in (torch.float32, torch.int8):
+        a, b = both(dist.all_reduce, lambda: ints(r, dt))
+        ok[f"all_reduce {dt} == gloo"] = torch.equal(a, b)
+    a, b = both(lambda t, group: dist.all_reduce(
+        t, op=dist.ReduceOp.MAX, group=group), lambda: normal(r))
+    ok["all_reduce max == gloo"] = torch.equal(a, b)
+    outs = [torch.empty(elems * n, device=dev) for _ in range(2)]
+    dist.all_gather_into_tensor(outs[0], normal(r), group=pm)
+    dist.all_gather_into_tensor(outs[1], normal(r), group=gloo)
+    ok["all_gather == gloo"] = torch.equal(outs[0], outs[1]) and \
+        torch.equal(outs[0], torch.cat([normal(i) for i in ranks]))
+    outs = [torch.empty(elems // n, device=dev) for _ in range(2)]
+    for o, g in zip(outs, (pm, gloo)):
+        dist.reduce_scatter_tensor(o, ints(r, torch.float32)[:o.numel() * n],
+                                   group=g)
+    ok["reduce_scatter == gloo"] = torch.equal(*outs)
+    # uneven splits: rank r sends (i + r + 1) x 1000 rows of 3 to rank i
+    sends = [[(i + q + 1) * 1000 for i in ranks] for q in ranks]
+    rows = torch.arange(sum(sends[r]) * 3, device=dev,
+                        dtype=torch.float32).reshape(-1, 3) + 1e6 * r
+    got = []
+    for g in (pm, gloo):
+        o = torch.empty(sum(sends[q][r] for q in ranks), 3, device=dev)
+        dist.all_to_all_single(o, rows, [s[r] for s in sends], sends[r],
+                               group=g)
+        got.append(o)
+    ok["all_to_all uneven == gloo"] = torch.equal(*got)
+    a, b = both(lambda t, group: dist.broadcast(t, src=1, group=group),
+                lambda: normal(r))
+    ok["broadcast == gloo"] = torch.equal(a, b) and torch.equal(a, normal(1))
+    outs = [torch.empty(elems, device=dev) for _ in range(2)]
+    for o, g in zip(outs, (pm, gloo)):
+        dist.scatter(o, [normal(i) for i in ranks] if r == 0 else None,
+                     src=0, group=g)
+    ok["scatter == gloo"] = torch.equal(*outs) and torch.equal(outs[0],
+                                                               normal(r))
+    # a group of one (a mesh axis of size 1): the root scatters to itself
+    solo = [dist.new_group([i], backend="peermem", pg_options=peermem.Options(
+        device=device, slot_bytes=slot_bytes)) for i in ranks][r]
+    o = torch.empty(elems, device=dev)
+    dist.scatter(o, [normal(r)], src=r, group=solo)
+    ok["scatter on a group of one"] = torch.equal(o, normal(r))
+    a, b = both(lambda t, group: dist.all_reduce(
+        t, op=dist.ReduceOp.AVG, group=group), lambda: ints(r, torch.float32))
+    ok["all_reduce avg == gloo"] = torch.equal(a, b)
+    try:
+        dist.all_reduce(normal(r), op=dist._make_nccl_premul_sum(2.0),
+                        group=pm)
+        ok["premul_sum raises"] = False
+    except ValueError:
+        ok["premul_sum raises"] = True
+    return {"ok": ok, "digest": hashlib.sha256(
+        x.cpu().numpy().tobytes()).hexdigest()}
+
+
+def host_traffic(device: str = "cuda") -> dict:
+    """Collectives of CUDA tensors under ``torch.profiler``: the backend
+    joined, the memcpy events between host and device, and the pinned
+    host allocator's counters that grew."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import hoststaged as hs
+    r, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(device)
+    x = torch.arange(4096 * n, device=dev, dtype=torch.float32) + r
+    out = torch.empty(4096 * n * n, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.host_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dist.all_reduce(x)
+        dist.all_gather_into_tensor(out, x)
+        dist.reduce_scatter_tensor(x[:4096], x.clone())
+        dist.all_to_all_single(x.clone(), x)
+        torch.cuda.synchronize()
+    after = torch.cuda.host_memory_stats()
+    copies = [e.name for e in prof.events()
+              if "Memcpy" in e.name and ("DtoH" in e.name or "HtoD" in e.name)]
+    grew = {k: v - before.get(k, 0) for k, v in after.items()
+            if (k.endswith(".allocated") or k == "num_host_alloc")
+            and v != before.get(k, 0)}
+    return {"backend": dist.get_backend(), "copies": len(copies),
+            "pinned": grew, "probe": hs.probe(device)}
 
 
 def spec_round_trip(device: str = "cpu") -> list:
