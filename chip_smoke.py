@@ -136,6 +136,15 @@ Phases (any failure exits non-zero before the final line):
    the unsharded calls of this run;
    in f32 (TF32 off) the 4-shard greedy tokens equal phase 6's 1-shard
    tokens;
+7l. the examples (``repro_torch.examples``) on the card through their
+   ``main``: ``serve_multiport`` (reduced tinyllama, 8 requests x 8
+   tokens) in the pallas and single-port modes, each driven with the
+   launch counts set to 0 just before and read just after (B1 = layers x
+   decode cycles, B2 = layers x prefill cycles, B3 = pool traversals),
+   equal greedy tokens, 1.00 against 2.00 traversals a steady decode
+   step; ``multiport_memory_demo``, read lanes == its CPU run's;
+   ``train_100m`` 20 steps (12 layers, d 768, batch 4 x 256, async
+   checkpoints), ce finite, step time and peak memory;
 8. sharded training over a data x model mesh (``launch.train``'s
    ``build_on_mesh``: DTensors placed by the JAX package's rules), with
    ranks that share the card (``launch.local_ranks``, one process each,
@@ -167,14 +176,13 @@ Phases (any failure exits non-zero before the final line):
    ``STATS`` exactly,
    and the predicted arguments + temporaries within 15 % of rank 0's peak
    in one 8b step after the first; then ``run_cell`` of every shape of
-   tinyllama-1.1b on the 256-rank mesh and of llama3-405b ``train_4k`` on
-   the 512-rank one, each ``ok`` and traced on the card's path, printed
-   as predictions; the ``train_4k`` cells of deepseek-moe-16b, rwkv6-3b
-   and zamba2-7b on the 256-rank mesh, each traced by ``python -m
-   repro_torch.launch.dryrun`` in a process of its own started after the
-   build (the recurrent families' eager scans trace for minutes on the
-   host's cores while the card runs the other phases), each ``ok`` on the
-   card's path, read once 8f is done;
+   tinyllama-1.1b on the 256-rank mesh, of llama3-405b ``train_4k`` on
+   the 512-rank one and of the ``train_4k`` cells of deepseek-moe-16b,
+   rwkv6-3b and zamba2-7b on the 256-rank mesh (2 layers, zamba2-7b 7
+   slots), each ``ok`` and traced on the card's path, printed as
+   predictions. These cells, and 8g's, are traced in one process of
+   their own started after the build (host work on fake tensors, beside
+   the phases on the card) and read here;
 8e. deepseek-moe-16b (2 of 28 layers), rwkv6-3b (8 of 32) and zamba2-7b
    (7 of 81 slots) at their published widths (bf16, AdamW, batch 4 x
    512: phases 7f and 7i's runs) over (data 2, model 2), 4 ranks, one job
@@ -185,6 +193,23 @@ Phases (any failure exits non-zero before the final line):
    256: one sharded step on (data 2, model 2) == the same step on one
    device, computed in this process before the ranks start (ce rtol
    1e-5, ``lm_head/w`` atol 2e-5 / rtol 1e-4);
+8g. the dry run's build options (``dryrun.build_step``'s optimizer,
+   gradient compression and microbatches, ``build_cell_fn``'s remat):
+   (a) 8b's job with ``microbatches=2``, ``optimizer="adafactor"`` and
+   ``remat="none"``, one variant after another in one job of 4 ranks, 2
+   steps each. Before the ranks start, each variant's step is traced on
+   fake CUDA tensors over a counting world of 4 (arguments + temporaries a
+   rank; where four ranks would not fit the card's free memory, the depth
+   is cut and the prediction that made the cut printed); each variant's
+   first ce within 4e-2 of phase 7f's one device, its traced collectives
+   == rank 0's counted ones exactly, its prediction within 15 % of rank
+   0's peak in the second step; (b) 8c's compressed step traced through
+   the dry run's options (int8_ef, ``n_pods`` from the mesh's ``pod``
+   axis) == 8c's tally, the pods' int8 all-reduce included; (c)
+   ``run_cell`` of tinyllama-1.1b ``train_4k`` on 256 ranks with
+   ``microbatches=4`` and with ``remat="none"``, and of llama3-405b
+   ``train_4k`` on 512 ranks with ``optimizer="adafactor"`` (8d's 2-layer
+   cut), each ``ok`` on the card's path under the JAX dry run's tag;
 9. time the launch floor (an empty kernel launched through ctypes like
    the others) and print how far the short calls of B1 and B3 lie above
    it;
@@ -3041,6 +3066,97 @@ def kv_mesh_paths(dev, unsharded: dict, f32_tokens: dict) -> dict:
     return paths, errs
 
 
+# ---- phase 7l: the examples (repro_torch.examples) ------------------------
+
+EXAMPLE_100M = ["--steps", "20"]      # train_100m at its batch 4 x 256
+
+
+def examples(card: str) -> dict:
+    """Phase 7l: the port's examples on the card, through their ``main``.
+    ``serve_multiport`` in the pallas and single-port modes (its defaults:
+    8 requests x 8 tokens of reduced tinyllama), each driven with the
+    launch counts set to 0 just before and read just after: B1 = layers x
+    decode cycles, B2 = layers x prefill cycles, B3 = pool traversals;
+    equal greedy tokens; steady traversals a decode step 1.00 fused and
+    2.00 single-port (the JAX engine's at these settings, held on the CPU
+    by tests/test_torch_examples.py). ``multiport_memory_demo``: its
+    service orders and read lanes equal its CPU run's. ``train_100m`` 20
+    steps: ce finite, the median step and peak memory printed. Returns the
+    serving paths' launch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.examples import (multiport_memory_demo, serve_multiport,
+                                      train_100m)
+    paths, engines = {}, {}
+    for mode, flags in (("pallas", []), ("single-port", ["--single-port"])):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            eng, counts, _ = _drive(lambda: serve_multiport.main(flags))
+        took = time.perf_counter() - t0
+        expect_launches(eng, counts)
+        expect_served(eng, 8, 8)
+        ratio = eng.steady_decode_traversals / max(eng.steady_decode_steps, 1)
+        want = 2.0 if mode == "single-port" else 1.0
+        if ratio != want:
+            raise AssertionError(f"7l serve_multiport {mode}: {ratio:.2f} "
+                                 f"traversals a steady decode step, not "
+                                 f"{want:.2f}")
+        lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+        print(f"example serve_multiport [{mode}, reduced tinyllama-1.1b, "
+              f"{eng.cfg.param_dtype}]: {took:.2f} s with its build; "
+              + " | ".join(lines[-4:-1]) + f" ({card})")
+        paths[f"example serve {mode}"] = counts
+        engines[mode] = eng
+    if _tokens(engines["pallas"]) != _tokens(engines["single-port"]):
+        raise AssertionError("7l serve_multiport: pallas and single-port "
+                             "tokens differ")
+    print(f"example serve_multiport: pallas == single-port greedy tokens "
+          f"({len(_tokens(engines['pallas']))} requests); traversals "
+          f"{engines['pallas'].pool_traversals} fused vs "
+          f"{engines['single-port'].pool_traversals} single-port ({card})")
+    del engines
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_run = multiport_memory_demo.main([])
+        cpu_run = multiport_memory_demo.main(["--device", "cpu"])
+    if (card_run["reads"], card_run["slots"]) != (cpu_run["reads"],
+                                                  cpu_run["slots"]):
+        raise AssertionError(f"7l multiport_memory_demo: the card's reads "
+                             f"{card_run['reads']} != the CPU's "
+                             f"{cpu_run['reads']}")
+    print(f"example multiport_memory_demo: read lanes and service orders == "
+          f"the CPU run's over {len(card_run['slots'])} cycles "
+          f"({card_run['reads']}) ({card})")
+
+    root = ROOT / "build" / "chip_smoke" / "train_100m"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        runner = train_100m.main(EXAMPLE_100M + ["--ckpt", str(root)])
+    took = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    ce = [h["ce"] for h in runner.history]
+    if len(ce) != 20 or not all(math.isfinite(c) for c in ce):
+        raise AssertionError(f"7l train_100m: ce {ce}")
+    dts = [h["dt"] for h in runner.history]
+    print(f"example train_100m [repro-100m, 12 layers, d 768, f32, AdamW, "
+          f"batch 4 x 256, 20 steps, async checkpoints]: ce {ce[0]:.4f} -> "
+          f"{ce[-1]:.4f}; first step {dts[0]:.4f} s, steps 1-19 median "
+          f"{statistics.median(dts[1:]):.4f} s; peak memory "
+          f"{_gib(torch.cuda.max_memory_allocated())}; {took:.1f} s with "
+          f"its build and checkpoints; "
+          + " | ".join(out.getvalue().splitlines()[-3:]) + f" ({card})")
+    del runner
+    torch.cuda.empty_cache()
+    return paths
+
+
 # ---- phase 8: sharded training over a data x model mesh (ROADMAP A8b) ----
 
 class Laps:
@@ -3059,6 +3175,8 @@ class Laps:
 
 
 MESH_TIMEOUT = 300              # seconds: each local job of ranks
+CELLS_TIMEOUT = 300             # seconds 8d may still wait for the dry-run
+                                # cells' process (started after the build)
 SHARDED_STEPS = 2               # full-width sharded AdamW steps (8d holds
                                 # its trace to the second one's peak)
 # the JAX multidevice test's tolerances (tests/distributed/test_multidevice.py)
@@ -3149,37 +3267,39 @@ def _on_mesh(argv: list, mesh, cfg_edit=None):
 
 
 def rank_families_full_width(runs: dict, steps: int) -> dict:
-    """8e, on each rank: ``rank_full_width`` of each arch of ``runs`` (arch
-    -> [argv, layers]) in turn, what the one before left freed first."""
+    """8e and 8g, on each rank: ``rank_full_width`` of each run of ``runs``
+    (name -> [argv, layers or None, and for 8g remat or None]) in turn,
+    what the one before left freed first."""
     import gc
     out = {}
-    for arch, (argv, layers) in runs.items():
+    for name, (argv, layers, *remat) in runs.items():
         gc.collect()
         torch.cuda.empty_cache()
-        out[arch] = rank_full_width(argv, steps, layers)
+        out[name] = rank_full_width(argv, steps, layers,
+                                    remat=remat[0] if remat else None)
     return out
 
 
 def rank_full_width(argv: list, steps: int, layers: int | None = None,
-                    backend: str = "peermem") -> dict:
-    """8b and 8e, on each rank: ``launch.train.build_on_mesh`` over (data
-    2, model 2), the depth cut to ``layers`` when given, and ``steps``
-    AdamW steps; each step's ce, grad_norm, host time (all ranks start it
-    together, it ends at the card's sync), the collectives this rank
-    counted and the bytes they moved on the card; the rank's peak memory
-    and state bytes."""
+                    backend: str = "peermem", remat: str | None = None
+                    ) -> dict:
+    """8b, 8e and 8g, on each rank: ``launch.train.build_on_mesh`` over
+    (data 2, model 2), the depth cut to ``layers`` and ``cfg.remat``
+    replaced by ``remat`` when given, and ``steps`` steps; each step's ce,
+    grad_norm, host time (all ranks start it together, it ends at the
+    card's sync), the collectives this rank counted and the bytes they
+    moved on the card; the rank's peak memory and state bytes."""
     import torch.distributed as dist
 
     from repro_torch import tree as T
-    from repro_torch.distributed import peermem
+    from repro_torch.distributed import hoststaged, peermem
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     _expect_backend(backend)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mesh = make_mesh((2, 2), ("data", "model"))
-    _, s = _on_mesh(argv, mesh, None if layers is None else
-                    lambda c: dataclasses.replace(c, n_layers=layers))
+    _, s = _on_mesh(argv, mesh, _cut(layers, remat))
     state, s.state = s.state, None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3200,7 +3320,7 @@ def rank_full_width(argv: list, steps: int, layers: int | None = None,
         dt = time.perf_counter() - t0
         rec = _record(metrics)
         recs.append({"ce": rec["ce"], "grad_norm": rec["grad_norm"], "s": dt,
-                     "counted": dict(peermem.STATS),
+                     "counted": hoststaged.snapshot(),
                      "moved": dict(peermem.MOVED), "held": held,
                      "step_peak": torch.cuda.max_memory_allocated()})
     local = sum(x.to_local().numel() * x.element_size()
@@ -3211,6 +3331,16 @@ def rank_full_width(argv: list, steps: int, layers: int | None = None,
     return {"steps": recs, "init_s": init_s,
             "peak": max(peak, torch.cuda.max_memory_allocated()),
             "state_bytes": local, "placements": placed}
+
+
+def _cut(layers: int | None, remat: str | None = None):
+    """A config edit: the depth cut to ``layers`` and ``remat`` replaced,
+    each where given; None where neither is."""
+    if layers is None and remat is None:
+        return None
+    kw = {k: v for k, v in (("n_layers", layers), ("remat", remat))
+          if v is not None}
+    return lambda c: dataclasses.replace(c, **kw)
 
 
 def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
@@ -3224,7 +3354,7 @@ def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.checkpoint import ckpt
-    from repro_torch.distributed import peermem
+    from repro_torch.distributed import hoststaged, peermem
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
     _expect_backend()
@@ -3240,7 +3370,7 @@ def rank_f32_identities(argv: list, ckpt_dir: str) -> dict:
         args, s = _on_mesh(argv + extra, mesh, _f32_cut(F32_LAYERS))
         peermem.reset_stats()
         state, m = s.step(s.state, s.loader.get(0))
-        counted = dict(peermem.STATS)
+        counted = hoststaged.snapshot()
         w = state["params"]["lm_head"]["w"].full_tensor()
         row = {"ce": float(m["ce"]), "counted": counted}
         if rank == 0:
@@ -3393,16 +3523,17 @@ def _moved_line(moved: dict) -> str:
             f"{moved.get('rounds', 0)} rounds")
 
 
-def _print_cell(rec: dict, card: str, cut: str = "") -> None:
+def _print_cell(rec: dict, card: str, cut: str = "",
+                phase: str = "8d") -> None:
     if rec["status"] != "ok" or rec["traced_on"] != "cuda":
-        raise AssertionError(f"8d: dry run {rec['arch']} x {rec['shape']} x "
+        raise AssertionError(f"{phase}: dry run {rec['arch']} x {rec['shape']} x "
                              f"{rec['mesh']}: {rec['status']} on "
                              f"{rec['traced_on']}: "
                              f"{rec.get('traceback', '')}")
     m, o = rec["memory"], rec["ops"]
     coll = ", ".join(f"{k} {v / 2**30:.3f} GiB"
                      for k, v in o["collective_bytes"].items() if v)
-    print(f"dry run 8d [prediction, {rec['chips']} ranks, traced on "
+    print(f"dry run {phase} [prediction, {rec['chips']} ranks, traced on "
           f"{rec['traced_on']}, {rec['trace_s']:.1f} s{cut}] {rec['arch']} x "
           f"{rec['shape']} x {rec['mesh']}: {rec['status']}; a rank's "
           f"arguments {_gib(m['argument_bytes'])}, temporaries "
@@ -3410,44 +3541,22 @@ def _print_cell(rec: dict, card: str, cut: str = "") -> None:
           f"collective bytes {coll or 'none'} ({card})")
 
 
-def dry_run(card: str, r0: dict) -> None:
+def dry_run(card: str, r0: dict, cells) -> None:
     """8d: 8b's step traced on fake CUDA tensors as rank 0 of a counting
     world of 4, held to rank 0's counted collectives (exact) and its peak
-    in a step after the first (15 %); then the dry run's cells of
-    tinyllama-1.1b, llama3-405b ``train_4k`` on 512 ranks, and the
-    ``train_4k`` cells of the moe, ssm and hybrid families, at their
-    published widths and 2 layers (``FAMILY_CELLS``' for those families):
-    which rule a layer meets does not depend on the depth; the full depths
-    are the sweep's (``python -m repro_torch.launch.dryrun --all``)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    from repro_torch.configs import registry
-    from repro_torch.configs.base import ShapeCell, applicable_shapes
-    from repro_torch.distributed import countgroup
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import dryrun, op_analysis, train
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train.train_step import make_train_step
+    in a step after the first (15 %); then 8d's cells of
+    :func:`dryrun_cells` (the full depths are the sweep's, ``python -m
+    repro_torch.launch.dryrun --all``)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import train
     args = train.parse_args(TRAIN + ["--steps", str(SHARDED_STEPS)])
     cfg, tcfg = train.arch_config(args), train.train_config(args)
-    cell = ShapeCell("8b", args.seq, args.batch, "train")
-    t0 = time.perf_counter()
-    with countgroup.world(4):
-        mesh = make_mesh((2, 2), ("data", "model"))
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            state, batch = dryrun.train_args(cfg, tcfg, cell, mesh,
-                                             shd.Rules.for_mesh(mesh))
-        _, ops = op_analysis.analyze(make_train_step(cfg, tcfg), state,
-                                     batch)
-    took = time.perf_counter() - t0
+    ops = _trace_step(cfg, tcfg, ShapeCell("8b", args.seq, args.batch,
+                                           "train"), (2, 2), ("data", "model"))
+    took = ops["trace_s"]
     last = r0["steps"][-1]
-    want, got = last["counted"], ops["staged"]
-    if got != want:
-        raise AssertionError(
-            "8d: the traced collectives differ from rank 0's counted ones: "
-            + "; ".join(f"{k}: traced {got.get(k)} counted {want.get(k)}"
-                        for k in sorted(set(got) | set(want))
-                        if got.get(k) != want.get(k)))
+    got = ops["staged"]
+    _expect_tally("8d", got, last["counted"])
     predicted = ops["argument_bytes"] + ops["temp_bytes"]
     ratio = predicted / last["step_peak"]
     if abs(ratio - 1) > DRYRUN_PEAK_TOL:
@@ -3463,28 +3572,85 @@ def dry_run(card: str, r0: dict) -> None:
           f"{_gib(last['step_peak'])} ({_gib(last['held'])} held as it "
           f"started): x{ratio:.4f} (limit "
           f"{DRYRUN_PEAK_TOL}); dot_flops {ops['dot_flops']:.4g} ({card})")
-    cells = [("tinyllama-1.1b", c.name, "single", F32_LAYERS) for c in
-             applicable_shapes(registry.get("tinyllama-1.1b"))]
-    cells += [("llama3-405b", "train_4k", "multi", F32_LAYERS)]
-    cells += [(a, "train_4k", "single", n) for a, n in FAMILY_CELLS.items()]
-    cut_cells(card, ROOT / "build" / "chip_smoke" / "dryrun", cells)
+    print_cells(card, "8d", cells)
 
 
-def cut_cells(card: str, out: Path, cells: list) -> None:
-    """The dry run's cells (arch, shape, mesh, layers) at their published
-    widths, the depth cut to ``layers``: each ``ok``, traced on the card's
-    path."""
+CELLS_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
+
+
+def dryrun_cells() -> list:
+    """The dry run's cells that 8d and 8g print: (phase, arch, shape, mesh,
+    layers, ``run_cell``'s options), at published widths with the depth
+    cut to ``layers`` (which rule a layer meets does not depend on the
+    depth): 8d every shape of tinyllama-1.1b on 256 ranks, llama3-405b
+    ``train_4k`` on 512 and the moe, ssm and hybrid families' ``train_4k``
+    (``FAMILY_CELLS``); 8g ``OPTION_CELLS``."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import applicable_shapes
+    cells = [("8d", "tinyllama-1.1b", c.name, "single", F32_LAYERS, {})
+             for c in applicable_shapes(registry.get("tinyllama-1.1b"))]
+    cells += [("8d", "llama3-405b", "train_4k", "multi", F32_LAYERS, {})]
+    cells += [("8d", a, "train_4k", "single", n, {})
+              for a, n in FAMILY_CELLS.items()]
+    cells += [("8g", a, sh, mk, F32_LAYERS, kw)
+              for a, sh, mk, kw in OPTION_CELLS]
+    return cells
+
+
+def trace_cells() -> None:
+    """In a process of its own (:func:`start_cells`): ``run_cell`` of every
+    cell of :func:`dryrun_cells` into ``CELLS_DIR``. The traces are host
+    work on fake tensors (the card's code path, no card memory), so they
+    run beside the other phases."""
     from repro_torch.configs import registry
     from repro_torch.launch import dryrun
     get = registry.get
-    for arch, shape, mk, layers in cells:
+    for _, arch, shape, mk, layers, build_kw in dryrun_cells():
         registry.get = lambda a, **kw: dataclasses.replace(get(a, **kw),
                                                            n_layers=layers)
         try:
-            rec = dryrun.run_cell(arch, shape, mk, str(out), force=True)
+            dryrun.run_cell(arch, shape, mk, str(CELLS_DIR), force=True,
+                            **build_kw)
         finally:
             registry.get = get
-        _print_cell(rec, card, f", {layers} of {get(arch).n_layers} layers")
+
+
+def start_cells():
+    """Start :func:`trace_cells` in a process of its own; returns it."""
+    import shutil
+    shutil.rmtree(CELLS_DIR, ignore_errors=True)
+    CELLS_DIR.mkdir(parents=True)
+    code = (f"import sys; sys.path[:0] = {[str(ROOT), str(ROOT / 'src')]!r}; "
+            "import chip_smoke; chip_smoke.trace_cells()")
+    with open(CELLS_DIR / "trace.log", "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code],
+                                stdin=subprocess.DEVNULL, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def print_cells(card: str, phase: str, cells) -> None:
+    """``phase``'s cells of :func:`dryrun_cells`, read from ``CELLS_DIR``
+    once ``cells``, the process of :func:`start_cells`, is done: each
+    ``ok``, traced on the card's path, its record under the JAX dry run's
+    tag."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    if cells.wait(timeout=CELLS_TIMEOUT) != 0:
+        raise AssertionError(f"{phase}: the dry-run cells' process exited "
+                             f"{cells.returncode}: "
+                             + (CELLS_DIR / "trace.log").read_text()[-4000:])
+    for ph, arch, shape, mk, layers, build_kw in dryrun_cells():
+        if ph != phase:
+            continue
+        tag = dryrun.cell_tag(arch, shape, mk, **build_kw)
+        path = CELLS_DIR / f"{tag}.json"
+        if not path.exists():
+            raise AssertionError(f"{phase}: no record {tag}.json in "
+                                 f"{CELLS_DIR}")
+        rec = json.loads(path.read_text())
+        _print_cell(rec, card, f", {layers} of "
+                    f"{registry.get(arch).n_layers} layers"
+                    + (f", {tag}" if build_kw else ""), phase)
 
 
 def _vals(xs: list) -> str:
@@ -3573,14 +3739,218 @@ def family_training(card: str, family_ce: dict, lap) -> None:
     lap("8f")
 
 
+# 8g: the dry run's build options on 8b's job, one variant at a time in one
+# job of ranks: name -> (dryrun.build_step's options, remat, launcher flags)
+OPTION_VARIANTS = {
+    "microbatches=2": ({"microbatches": 2}, None, ["--microbatches", "2"]),
+    "optimizer=adafactor": ({"optimizer": "adafactor"}, None,
+                            ["--optimizer", "adafactor"]),
+    "remat=none": ({}, "none", []),
+}
+# what a rank holds on the card beside what the dry run predicts: its
+# peer-memory slot (512 MiB) and its CUDA context and cuBLAS workspace
+RANK_OVERHEAD = 1.5 * 2**30
+# 8g (c): sweep cells under options, at 8d's cut depth
+OPTION_CELLS = [("tinyllama-1.1b", "train_4k", "single", {"microbatches": 4}),
+                ("tinyllama-1.1b", "train_4k", "single", {"remat": "none"}),
+                ("llama3-405b", "train_4k", "multi",
+                 {"optimizer": "adafactor"})]
+
+
+def _trace_step(cfg, tcfg, cell, shape: tuple, axes: tuple) -> dict:
+    """The step of ``cfg`` / ``tcfg`` traced on fake CUDA tensors as rank 0
+    of a counting world over ``shape``, placed by the dry run's
+    ``train_args`` and without hints (as ``launch.train`` runs it): the
+    op analysis, with the seconds it took."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed import countgroup
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import make_train_step
+    t0 = time.perf_counter()
+    with countgroup.world(math.prod(shape)):
+        mesh = make_mesh(shape, axes)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state, batch = dryrun.train_args(cfg, tcfg, cell, mesh,
+                                             shd.Rules.for_mesh(mesh))
+        _, ops = op_analysis.analyze(make_train_step(cfg, tcfg), state,
+                                     batch)
+    return dict(ops, trace_s=time.perf_counter() - t0)
+
+
+def _expect_tally(what: str, got: dict, want: dict) -> None:
+    """Raises, naming each key where the traced tally differs from the
+    counted one."""
+    if got != want:
+        raise AssertionError(
+            f"{what}: the traced collectives differ from rank 0's counted "
+            "ones: " + "; ".join(
+                f"{k}: traced {got.get(k)} counted {want.get(k)}"
+                for k in sorted(set(got) | set(want))
+                if got.get(k) != want.get(k)))
+
+
+def _option_predictions(card: str) -> dict:
+    """8g (a), before the ranks start: each variant's step on 8b's job
+    traced at full depth; where four ranks' predicted bytes (arguments +
+    temporaries + ``RANK_OVERHEAD``) do not fit the card's free memory,
+    the depth is cut to the most layers that fit by the per-layer bytes
+    and traced again. Returns name -> [layers or None, the analysis]."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import countgroup
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh
+    args = train.parse_args(TRAIN + ["--steps", str(SHARDED_STEPS)])
+    cell = ShapeCell("8b", args.seq, args.batch, "train")
+    base = train.arch_config(args)
+    free = torch.cuda.mem_get_info()[0]
+    out = {}
+    for name, (kw, remat, _) in OPTION_VARIANTS.items():
+        layers = None
+        while True:
+            cfg = _cut(layers, remat)(base) if (layers or remat) else base
+            with countgroup.world(4):
+                tcfg = dryrun.train_config(
+                    cfg, make_mesh((2, 2), ("data", "model")), **kw)
+            ops = _trace_step(cfg, tcfg, cell, (2, 2), ("data", "model"))
+            need = 4 * (ops["argument_bytes"] + ops["temp_bytes"]
+                        + RANK_OVERHEAD)
+            print(f"dry run 8g [prediction, {name}, "
+                  f"{cfg.n_layers} of {base.n_layers} layers, 4 ranks, "
+                  f"traced on fake CUDA tensors, {ops['trace_s']:.1f} s]: a "
+                  f"rank's arguments {_gib(ops['argument_bytes'])} + "
+                  f"temporaries {_gib(ops['temp_bytes'])}; four ranks with "
+                  f"{_gib(RANK_OVERHEAD)} each beside it {_gib(need)} "
+                  f"against {_gib(free)} free on the card; collective bytes "
+                  f"{sum(b for _, b in ops['staged'].values()) / 2**30:.2f} "
+                  f"GiB, dot_flops {ops['dot_flops']:.4g} ({card})")
+            if need <= free or cfg.n_layers == 1:
+                break
+            per_layer = ops["temp_bytes"] / cfg.n_layers
+            spare = free / 4 - RANK_OVERHEAD - ops["argument_bytes"]
+            layers = max(1, min(cfg.n_layers - 1, int(spare // per_layer)))
+            print(f"dry run 8g: {name} does not fit four ranks at "
+                  f"{cfg.n_layers} layers: cut to {layers} ({card})")
+        out[name] = [layers, ops]
+    return out
+
+
+def dryrun_options(card: str, one_device: dict, r8b: dict,
+                   compressed: dict, cells) -> None:
+    """8g: the dry run's build options held to measured steps. (a) each
+    of ``OPTION_VARIANTS`` on 8b's job (tinyllama-1.1b, bf16, batch 8 x
+    1024, data 2 x model 2, 4 ranks on the card, one job, 2 steps each),
+    predicted first: the first step's ce within 4e-2 of phase 7f's one
+    device, the traced collectives == rank 0's counted ones in a step,
+    arguments + temporaries within 15 % of rank 0's peak in the second
+    step; (b) 8c's compressed step (int8_ef, 2 pods, f32 at 2 layers)
+    traced through the dry run's options == its tally (``compressed``:
+    rank 0's), the pods' int8 all-reduce included; (c) ``OPTION_CELLS``
+    through ``run_cell`` (traced by ``cells``, the process of
+    :func:`start_cells`), each ``ok`` on the card's path."""
+    import gc
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import countgroup
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    predicted = _option_predictions(card)
+    took = time.perf_counter() - t0
+    runs = {name: [TRAIN + ["--steps", str(SHARDED_STEPS), *flags],
+                   predicted[name][0], remat]
+            for name, (_, remat, flags) in OPTION_VARIANTS.items()}
+    t0 = time.perf_counter()
+    jobs = _mesh_job("rank_families_full_width", 4, runs=runs,
+                     steps=SHARDED_STEPS)
+    job_s = time.perf_counter() - t0
+    b_last = r8b["steps"][-1]
+    b_bytes = sum(b for _, b in b_last["counted"].values())
+    failed = []         # every variant is printed before any check raises
+    for name in OPTION_VARIANTS:
+        ranks = [job[name] for job in jobs]
+        r0 = ranks[0]
+        layers, ops = predicted[name]
+        ce = r0["steps"][0]["ce"]
+        last = r0["steps"][-1]
+        guess = ops["argument_bytes"] + ops["temp_bytes"]
+        ratio = guess / last["step_peak"]
+        checks = {
+            "ce": abs(ce - one_device["ce"]) <= BF16_TOL,
+            "ranks' ce": all(r["steps"][i]["ce"] == r0["steps"][i]["ce"]
+                             for r in ranks for i in range(SHARDED_STEPS)),
+            "tally": ops["staged"] == last["counted"],
+            "peak": abs(ratio - 1) <= DRYRUN_PEAK_TOL}
+        per_rank = [sum(b for _, b in r["steps"][-1]["counted"].values())
+                    for r in ranks]
+        depth = ("22 layers" if layers is None
+                 else f"{layers} of 22 layers (cut by the prediction)")
+        ces = _vals([rec["ce"] for rec in r0["steps"]])
+        secs = ", ".join(f"{rec['s']:.3f}" for rec in r0["steps"])
+        secs_8b = ", ".join(f"{rec['s']:.3f}" for rec in r8b["steps"])
+        tally = ("traced collectives == rank 0's counted exactly"
+                 if checks["tally"] else "traced collectives DIFFER from "
+                 f"rank 0's counted ({_counted_line(ops['staged'])})")
+        print(f"mesh 8g [{name}, tinyllama-1.1b, published widths, {depth}, "
+              f"bf16, batch 8 x 1024, data 2 x model 2, 4 ranks on the card]"
+              f": ce {ces} (step 1 vs one device {one_device['ce']:.6f}: "
+              f"|diff| {abs(ce - one_device['ce']):.3g}, limit {BF16_TOL}); "
+              f"seconds a step by rank 0 {secs} (8b {secs_8b}); {tally} "
+              f"({_counted_line(last['counted'])}); collective bytes a step "
+              f"by rank {', '.join(f'{b / 2**30:.2f} GiB' for b in per_rank)}"
+              f" (8b {b_bytes / 2**30:.2f} GiB); rank 0 moved "
+              f"{_moved_line(last['moved'])}; predicted arguments "
+              f"{_gib(ops['argument_bytes'])} + temporaries "
+              f"{_gib(ops['temp_bytes'])} = {_gib(guess)} against rank 0's "
+              f"peak in step {SHARDED_STEPS - 1} alone "
+              f"{_gib(last['step_peak'])} ({_gib(last['held'])} held as it "
+              f"started): x{ratio:.4f} (limit {DRYRUN_PEAK_TOL}; 8b "
+              f"{_gib(b_last['step_peak'])}); peak by rank "
+              f"{', '.join(_gib(r['peak']) for r in ranks)}; state bytes by "
+              f"rank {', '.join(_gib(r['state_bytes']) for r in ranks)} "
+              f"({card})")
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"8g: {', '.join(failed)} (lines above)")
+    print(f"mesh 8g: predictions {took:.1f} s, {len(OPTION_VARIANTS)} "
+          f"variants in one job of 4 ranks {job_s:.1f} s ({card})")
+
+    args = train.parse_args(TRAIN_ARCH + ["--batch", str(TRAIN_F32_BATCH),
+                                          "--seq", str(TRAIN_F32_SEQ)])
+    cfg = _f32_cut(F32_LAYERS)(train.arch_config(args))
+    shape, axes = (2, 1, 2), ("pod", "data", "model")
+    with countgroup.world(4):
+        tcfg = dryrun.train_config(cfg, make_mesh(shape, axes),
+                                   grad_compression="int8_ef")
+    ops = _trace_step(cfg, tcfg, ShapeCell("8c", TRAIN_F32_SEQ,
+                                           TRAIN_F32_BATCH, "train"),
+                      shape, axes)
+    _expect_tally("8g compressed", ops["staged"], compressed)
+    int8 = {k: v for k, v in ops["staged"].items() if " int8 " in k}
+    if not int8:
+        raise AssertionError(f"8g compressed: no int8 collective traced: "
+                             f"{ops['staged']}")
+    print(f"dry run 8g [8c's compressed step: int8_ef over {tcfg.n_pods} "
+          f"pods from the mesh's pod axis, f32 at {F32_LAYERS} layers, pod "
+          f"2 x data 1 x model 2, traced on fake CUDA tensors, "
+          f"{ops['trace_s']:.1f} s]: collectives == rank 0's counted "
+          f"exactly, the pods' {_counted_line(int8)} among them "
+          f"({_counted_line(ops['staged'])}) ({card})")
+    print_cells(card, "8g", cells)
+
+
 def sharded_training(card: str, one_device: dict, family_ce: dict,
-                     lap) -> None:
+                     lap, cells) -> None:
     """Phase 8: 8a the collective probe, 8b tinyllama-1.1b at its
     published widths over (data 2, model 2) with 4 ranks on the card,
     8c the f32 identities (sharded == one device, the compressed step's
     int8 pod all-reduce, the elastic restart on 2 ranks), 8d the dry run
     held to 8b, 8e and 8f the non-dense families (``family_ce``: their
-    one-device first ce by arch)."""
+    one-device first ce by arch), 8g the dry run's build options
+    (``cells``: the process of :func:`start_cells`)."""
     import gc
     import shutil
     n = 4
@@ -3682,9 +4052,11 @@ def sharded_training(card: str, one_device: dict, family_ce: dict,
           f"vs {sh['ce_next']:.7f} going on at (2, 2) (|diff| {d:.3g}, rtol "
           f"{MESH_CE_RTOL}); 8c in {time.perf_counter() - t0:.1f} s ({card})")
     lap("8c")
-    dry_run(card, r0)
+    dry_run(card, r0, cells)
     lap("8d")
     family_training(card, family_ce, lap)
+    dryrun_options(card, one_device, r0, cp["counted"], cells)
+    lap("8g")
 
 
 def main() -> int:
@@ -3708,6 +4080,18 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"(nvcc per source: { {k: round(v, 1) for k, v in took.items()} })")
     lap("1")
+    cells = start_cells()
+    try:
+        return _phases(K, card, lap, cells)
+    finally:
+        if cells.poll() is None:
+            cells.kill()
+            cells.wait()
+
+
+def _phases(K, card: str, lap, cells) -> int:
+    """Phases 2-10 (``main`` builds the kernels and starts ``cells``, the
+    process that traces the dry run's cells, first)."""
     for log in sorted(K._build.BUILD_DIR.glob("*.ptxas.txt")):
         text = log.read_text()
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -3872,13 +4256,15 @@ def main() -> int:
         errs[name]["kv_mesh"] = e
     lap("7k")
     torch.cuda.empty_cache()
+    paths.update(examples(card))
+    lap("7l")
 
     one_device = train_full_width(card)
     train_f32_identity(card)
     family_ce["deepseek-moe-16b"] = train_moe(card)
     torch.cuda.empty_cache()
     lap("7f-7h")
-    sharded_training(card, one_device, family_ce, lap)
+    sharded_training(card, one_device, family_ce, lap, cells)
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

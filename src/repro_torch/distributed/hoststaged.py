@@ -39,6 +39,12 @@ def reset_stats() -> None:
     STATS.clear()
 
 
+def snapshot(stats: dict = STATS) -> dict:
+    """A copy of a tally (``STATS``) that later counts leave as it is: its
+    values are lists that each count adds to."""
+    return {k: list(v) for k, v in stats.items()}
+
+
 def stat_key(op: str, dtype, group_size: int) -> str:
     """``STATS``'s key of a collective: ``"all_reduce int8 x2"``."""
     name = str(dtype).removeprefix("torch.") if dtype is not None else "-"

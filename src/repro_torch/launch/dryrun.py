@@ -35,10 +35,17 @@ that raises (a DTensor rule missing, a host read of a fake value) is
 recorded with its error and the sweep goes on; the exit code is 1 if any
 cell erred. Records go to ``--out`` (``artifacts/dryrun_torch``), never
 to the JAX dry run's directory, whose reader would take them for its own.
+
+The JAX dry run's build options are the port's too, with its defaults:
+``run_cell(..., optimizer=, grad_compression=, microbatches=, remat=)``
+(no CLI flag, as in JAX) passes them to :func:`build_cell_fn` and names
+the record ``arch__shape__mesh__k-v_k-v`` (:func:`cell_tag`), the JAX
+record's name letter for letter.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -124,14 +131,29 @@ def decode_rules(cfg, mesh) -> shd.Rules:
                      dp=("pod",) if "pod" in mesh.axis_names else ())
 
 
-def build_step(cfg, cell, mesh, rules):
-    """Returns (step under the hints, (state, batch) placed on ``mesh``).
-    The optimizer is the JAX dry run's default: 8-bit AdamW for
-    llama3-405b, AdamW for the others."""
+def train_config(cfg, mesh, *, optimizer=None, grad_compression=None,
+                 microbatches=1) -> TrainConfig:
+    """The train config of a dry-run cell, as the JAX dry run builds it:
+    the optimizer by default 8-bit AdamW for llama3-405b and AdamW for the
+    others; under gradient compression one error-feedback slice for each
+    ``pod`` of the mesh (1 without a ``pod`` axis)."""
+    opt = optimizer or ("adamw8bit" if cfg.arch_id.startswith("llama3-405b")
+                        else "adamw")
+    n_pods = mesh.shape.get("pod", 1)
+    return TrainConfig(optimizer=opt, microbatches=microbatches,
+                       grad_compression=grad_compression,
+                       n_pods=n_pods if grad_compression else 1)
+
+
+def build_step(cfg, cell, mesh, rules, *, optimizer=None,
+               grad_compression=None, microbatches=1):
+    """Returns (step under the hints, (state, batch) placed on ``mesh``),
+    with the JAX dry run's options and defaults (:func:`train_config`)."""
     if cell.kind != "train":
         raise ValueError(f"build_step builds train cells, not {cell.kind}")
-    tcfg = TrainConfig(optimizer="adamw8bit"
-                       if cfg.arch_id.startswith("llama3-405b") else "adamw")
+    tcfg = train_config(cfg, mesh, optimizer=optimizer,
+                        grad_compression=grad_compression,
+                        microbatches=microbatches)
     step = _with_hints(make_train_step(cfg, tcfg),
                        _act_specs(cfg, mesh, rules, cell.global_batch,
                                   seq_len=cell.seq_len))
@@ -149,11 +171,18 @@ def train_args(cfg, tcfg, cell, mesh, rules) -> tuple:
             _placed(SP.input_specs(cfg, cell), bspecs, mesh))
 
 
-def build_cell_fn(cfg, cell, mesh, rules):
+def build_cell_fn(cfg, cell, mesh, rules, *, optimizer=None,
+                  grad_compression=None, microbatches=1, remat=None):
     """Unified builder: returns (fn, args placed on ``mesh``). Call it, and
-    the fn, inside one ``FakeTensorMode`` for a shape-only run."""
+    the fn, inside one ``FakeTensorMode`` for a shape-only run. ``remat``
+    replaces ``cfg.remat`` for every kind of cell; the other options are
+    :func:`build_step`'s."""
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     if cell.kind == "train":
-        return build_step(cfg, cell, mesh, rules)
+        return build_step(cfg, cell, mesh, rules, optimizer=optimizer,
+                          grad_compression=grad_compression,
+                          microbatches=microbatches)
 
     if cell.kind == "decode":
         rules = decode_rules(cfg, mesh)
@@ -187,22 +216,38 @@ def build_cell_fn(cfg, cell, mesh, rules):
                 _placed(batch, bspecs, mesh))
 
 
-def trace_cell(cfg, cell, mesh, rules) -> dict:
-    """``build_cell_fn`` and one call of its fn on fake tensors inside
-    ``op_analysis.analyze``: the analysis dict, with ``trace_s``."""
+def trace_cell(cfg, cell, mesh, rules, **build_kw) -> dict:
+    """``build_cell_fn`` (with ``build_kw``, its options) and one call of
+    its fn on fake tensors inside ``op_analysis.analyze``: the analysis
+    dict, with ``trace_s``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode(allow_non_fake_inputs=True):
-        fn, args = build_cell_fn(cfg, cell, mesh, rules)
+        fn, args = build_cell_fn(cfg, cell, mesh, rules, **build_kw)
     t0 = time.time()
     _, ops = op_analysis.analyze(fn, *args)
     return dict(ops, trace_s=time.time() - t0)
 
 
+def cell_tag(arch_id: str, shape_name: str, mesh_kind: str,
+             **build_kw) -> str:
+    """A record's name, the JAX dry run's letter for letter:
+    ``arch__shape__mesh``, then ``__k-v_k-v`` of the options by name."""
+    tag = f"{arch_id}__{shape_name}__{mesh_kind}"
+    if build_kw:
+        tag += "__" + "_".join(f"{k}-{v}" for k, v in sorted(build_kw.items()))
+    return tag
+
+
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
-             *, force: bool = False) -> dict:
+             *, force: bool = False, **build_kw) -> dict:
+    """Trace one cell (``build_kw``: :func:`build_cell_fn`'s options) and
+    write its record to ``out_dir``, under :func:`cell_tag`'s name; a
+    record already there is read back unless ``force``."""
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{arch_id}__{shape_name}__{mesh_kind}.json")
+    path = os.path.join(out_dir,
+                        cell_tag(arch_id, shape_name, mesh_kind, **build_kw)
+                        + ".json")
     if os.path.exists(path) and not force:
         with open(path) as f:
             return json.load(f)
@@ -221,7 +266,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
                                         devices=rec["traced_on"])
             rules = shd.Rules.for_mesh(
                 mesh, fsdp_over_pod=arch_id.startswith("llama3-405b"))
-            ops = trace_cell(cfg, cell, mesh, rules)
+            ops = trace_cell(cfg, cell, mesh, rules, **build_kw)
         rec["trace_s"] = ops.pop("trace_s")
         rec["memory"] = {k: ops[k] for k in (
             "argument_bytes", "output_bytes", "temp_bytes", "alias_bytes")}

@@ -57,8 +57,12 @@ def init_train_state(params: PyTree, tcfg: TrainConfig) -> dict:
 
 
 def _split_micro(batch: dict, m: int) -> list[dict]:
-    """``m`` equal slices of the batch along its leading axis, in order."""
-    return [{k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
+    """``m`` equal slices of the batch along its leading axis, in order
+    (JAX's rows). A DTensor slice is placed as the whole batch is: slicing
+    rows split over ``data`` gathers them, and each data rank then keeps
+    its share of the microbatch's rows, so no row is computed twice."""
+    return [{k: S.like(v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)],
+                       v)
              for k, v in batch.items()} for i in range(m)]
 
 

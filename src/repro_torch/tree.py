@@ -47,15 +47,18 @@ def leaves_up_to(tree: PyTree, other: PyTree) -> list:
 def unflatten(tree: PyTree, values) -> PyTree:
     """``tree``'s structure with its leaves replaced, in leaf order, by
     ``values``."""
-    it = iter(values)
+    return _build(tree, iter(values))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(tree)
+
+def _build(t: PyTree, it: Iterator) -> PyTree:
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, which would keep ``values`` (a
+    # step's gradients, say) alive until the cyclic collector runs
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:

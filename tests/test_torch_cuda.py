@@ -1438,3 +1438,79 @@ def test_scan_on_two_ranks_of_one_card(cuda_device, tmp_path, dtype, tol):
     for r in ranks:
         assert len(r) == 3 * 8 - 1
         assert not {k: v for k, v in r.items() if not v <= tol}, r
+
+
+@pytest.mark.cuda
+def test_serve_multiport_example_on_card(cuda_device):
+    """``repro_torch.examples.serve_multiport`` on the card in its three
+    modes: every request served, equal greedy tokens, B1 = layers x decode
+    cycles, B2 = layers x prefill cycles, B3 = pool traversals, and 1.00
+    (fused) / 2.00 (single-port, reference) traversals a steady decode
+    step."""
+    from repro_torch.examples import serve_multiport
+    from repro_torch.kernels import reset_launch_counts
+    tokens = {}
+    for mode, flags in (("pallas", []), ("single-port", ["--single-port"]),
+                        ("reference", ["--kernel-mode", "reference"])):
+        reset_launch_counts()
+        eng = serve_multiport.main(flags)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        L, pallas = eng.cfg.n_layers, mode != "reference"
+        assert got["kv_decode_append_attend"] == (
+            L * eng.decode_steps if pallas else 0)
+        assert got["kv_chunk_append_attend"] == (
+            L * eng.prefill_steps if pallas else 0)
+        assert got["multiport_sram_step"] == (
+            eng.pool.traversals if pallas else 0)
+        assert eng.decode_steps and eng.prefill_steps and eng.pool.traversals
+        assert len(eng.finished) == 8
+        assert eng.steady_decode_traversals == (
+            1 if mode == "pallas" else 2) * eng.steady_decode_steps
+        tokens[mode] = {r.rid: list(r.generated) for r in eng.finished}
+    assert tokens["pallas"] == tokens["single-port"] == tokens["reference"]
+
+
+@pytest.mark.cuda
+def test_multiport_memory_demo_on_card_equals_the_cpu(cuda_device):
+    from repro_torch.examples import multiport_memory_demo
+    card = multiport_memory_demo.main([])
+    cpu = multiport_memory_demo.main(["--device", "cpu"])
+    assert card["reads"] == cpu["reads"] and card["slots"] == cpu["slots"]
+
+
+@pytest.mark.cuda
+def test_training_examples_on_card(cuda_device, tmp_path):
+    """``quickstart`` and ``train_100m`` take 2 finite steps on the card;
+    ``elastic_restart`` recovers with drift < 1e-5."""
+    import math
+
+    from repro_torch.examples import elastic_restart, quickstart, train_100m
+    hist = quickstart.main(["--steps", "2"])
+    assert all(math.isfinite(h["ce"]) for h in hist)
+    runner = train_100m.main(["--steps", "2", "--ckpt",
+                              str(tmp_path / "ckpt")])
+    assert len(runner.history) == 2
+    assert all(math.isfinite(h["ce"]) for h in runner.history)
+    got = elastic_restart.main(["--work-dir", str(tmp_path / "elastic")])
+    assert got["restarts"] == 2 and got["drift"] < elastic_restart.DRIFT_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"microbatches": 2}, {"remat": "none"},
+                                {"optimizer": "adafactor"}], ids=str)
+def test_dryrun_options_trace_on_the_card_s_path(cuda_device, kw):
+    """``dryrun.trace_cell`` with each build option on fake CUDA tensors
+    over a counting world of 4 (the card's code path)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import countgroup
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = registry.get("tinyllama-1.1b", reduced=True)
+    with countgroup.world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), devices="cuda")
+        ops = dryrun.trace_cell(cfg, ShapeCell("train", 16, 8, "train"), mesh,
+                                shd.Rules.for_mesh(mesh), **kw)
+    assert ops["dot_flops"] > 0 and ops["staged"]

@@ -163,7 +163,7 @@ def compressed_steps(params_npz: str, out_npz: str, steps: int,
         out["ce"].append(float(m["ce"]))
         out["grad_norm"].append(float(m["grad_norm"]))
         if i == 0:
-            out["staged"] = dict(hoststaged.STATS)
+            out["staged"] = hoststaged.snapshot()
         if i == head_after:
             _save_rank0(out_npz,
                         lm_head=state["params"]["lm_head"]["w"].full_tensor())
@@ -189,7 +189,7 @@ def mesh_step(params_npz: str, out_npz: str, shape: list, steps: int,
         state, m = step(state, loader.get(i))
         out["ce"].append(float(m["ce"]))
         out["grad_norm"].append(float(m["grad_norm"]))
-        out["staged"].append(dict(hoststaged.STATS))
+        out["staged"].append(hoststaged.snapshot())
     digest = hashlib.sha256()
     for x in T.leaves(state):
         if all(isinstance(p, Replicate) for p in x.placements):
@@ -407,7 +407,7 @@ def staged_steps(device: str = "cpu") -> dict:
                        ("hinted", dryrun._with_hints(s.step, hints))):
         hoststaged.reset_stats()
         _, m = step(s.state, batch)
-        staged = dict(hoststaged.STATS)
+        staged = hoststaged.snapshot()
         out[what] = {"loss": float(m["loss"]), "ce": float(m["ce"]),
                      "staged": staged}
     return out
@@ -619,3 +619,49 @@ def sharded_serving(params_npz: str, out_npz: str,
     return {"diff": [float((a - b_).abs().max())
                      for a, b_ in zip(sharded, plain)],
             "cache": str(st["cache_k"].placements)}
+
+
+def option_steps(params_npz: str, out_npz: str, steps: int, variants: dict,
+                 device: str = "cpu") -> dict:
+    """The dry run's build options on (data 2, model 2). ``micro``:
+    ``steps`` steps of ``PLAIN`` with 2 microbatches from the JAX initial
+    parameters, each step's ce and the collectives counted in it; rank 0
+    writes ``lm_head/w`` after the last to ``out_npz``. Then for each of
+    ``variants`` (name -> [launcher flags, remat or None]) the launcher's
+    build (``build_on_mesh``, reduced tinyllama, batch 8 x 16) and one
+    step: its ce and the collectives this rank counted in it. Last,
+    ``compressed_steps``' first step on (pod 2, data 1, model 2): the
+    collectives counted in it (``compressed``)."""
+    from repro_torch.distributed import peermem
+    from repro_torch.launch import train
+    mesh = make_mesh((2, 2), ("data", "model"), devices=device)
+    micro = dataclasses.replace(PLAIN, microbatches=2)
+    _, state, loader, step, specs = _setup(mesh, params_npz, micro, 1, device)
+    out = {"backend": dist.get_backend(), "ce": [], "counted": []}
+    for i in range(steps):
+        peermem.reset_stats()
+        state, m = step(state, loader.get(i))
+        out["ce"].append(float(m["ce"]))
+        out["counted"].append(hoststaged.snapshot())
+    out["placed"] = _placed_as(state, specs)
+    _save_rank0(out_npz, lm_head=state["params"]["lm_head"]["w"].full_tensor())
+    orig = train.arch_config
+    for name, (flags, remat) in variants.items():
+        args = train.parse_args(["--arch", "tinyllama-1.1b", "--reduced",
+                                 "--device", device, "--batch", str(BATCH),
+                                 "--seq", str(SEQ), *flags])
+        if remat is not None:
+            train.arch_config = lambda a: dataclasses.replace(orig(a),
+                                                              remat=remat)
+        try:
+            s = train.build_on_mesh(args, mesh)
+        finally:
+            train.arch_config = orig
+        peermem.reset_stats()
+        _, m = s.step(s.state, s.loader.get(0))
+        out[name] = {"ce": float(m["ce"]), "counted": hoststaged.snapshot(),
+                     "remat": s.cfg.remat, "tcfg": [s.tcfg.optimizer,
+                                                    s.tcfg.microbatches]}
+    out["compressed"] = compressed_steps(params_npz, out_npz + ".pods.npz", 1,
+                                         device, shape=[2, 1, 2])["staged"]
+    return out
