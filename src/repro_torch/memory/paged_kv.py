@@ -92,6 +92,7 @@ from repro_torch.core import (MemorySpec, PortConfig, READ, WRITE, PortRequest,
 from repro_torch.distributed.sharding import (KVShardPlan, kv_pool_spec,
                                               kv_shard_plan, on_device,
                                               shard_of_pages)
+from repro_torch.spans import span
 
 # pool port indices
 APPEND, ATTN_READ, BULK_FILL, SCRUB = 0, 1, 2, 3
@@ -269,6 +270,10 @@ class PagedPool:
     prefix_attached_pages: int = 0     # pages adopted by refcount bump
     cow_copies: int = 0                # shared tail pages remapped on write
     cow_words: int = 0                 # live words those remaps copied
+    h2d_bytes: int = 0                 # host->device: the port requests'
+                                       # addr/data/mask, read indices
+    d2h_bytes: int = 0                 # device->host: CoW source and
+                                       # prefix words read to the host
 
     @classmethod
     def create(cls, *, n_pages: int, page_tokens: int, word_width: int,
@@ -345,6 +350,7 @@ class PagedPool:
         """Words at global addresses ``addr`` ([n, W] on :attr:`device`),
         each read from the shard that owns it."""
         idx = torch.from_numpy(np.asarray(addr, np.int64))
+        self.h2d_bytes += idx.numel() * idx.element_size()
         if not self.sharded:
             return self.storage[idx.to(self.device)]
         out = torch.empty((len(idx), self.spec.word_width),
@@ -819,7 +825,13 @@ class PagedPool:
         read, not a ported traversal (the pool's ports only carry words
         the model is writing or attending this macro-cycle)."""
         got = self._read_words(self._addr(seq, np.asarray(positions)))
-        return got.float().cpu().numpy()[:, :self.io_width]
+        return self._to_host(got)[:, :self.io_width]
+
+    def _to_host(self, words: torch.Tensor) -> np.ndarray:
+        """A counted f32 host copy of words read from the pool."""
+        out = words.float().cpu().numpy()
+        self.d2h_bytes += out.nbytes
+        return out
 
     def _cow_prepare(self, seq: int, new_tokens: int):
         """Copy-on-write remap for a write stream: when the sequence's next
@@ -983,96 +995,100 @@ class PagedPool:
                     else [empty for _ in reads]}
         q = _bucket(max(lanes))
 
-        dev = self.device
-        reqs = [empty_request(q, self.spec.word_width, self.spec.dtype, dev)
-                for _ in range(4)]
+        with span("staging.pool"):
+            dev = self.device
+            reqs = [empty_request(q, self.spec.word_width, self.spec.dtype,
+                                  dev) for _ in range(4)]
 
-        def _dev(a: np.ndarray, dtype=None) -> torch.Tensor:
-            t = torch.from_numpy(a)
-            return t.to(device=dev, dtype=dtype if dtype is not None
-                        else t.dtype)
-        w_tiles: set = set()               # distinct W-port tiles this cycle
-        r_tiles: set = set()               # distinct R-port tiles this cycle
+            def _dev(a: np.ndarray, dtype=None) -> torch.Tensor:
+                self.h2d_bytes += a.nbytes
+                t = torch.from_numpy(a)
+                return t.to(device=dev, dtype=dtype if dtype is not None
+                            else t.dtype)
+            w_tiles: set = set()           # distinct W-port tiles this cycle
+            r_tiles: set = set()           # distinct R-port tiles this cycle
 
-        def _write_req(streams, cow=()):
-            addr = np.zeros(q, np.int32)
-            data = np.zeros((q, self.spec.word_width), np.float32)
-            mask = np.zeros(q, bool)
-            at = 0
-            for old, new in cow:
-                # CoW copy lanes: the shared page's live words, gathered
-                # host-side (it cannot be a ported read — the copy must
-                # land in the same traversal), written to the fresh page.
-                # Disjoint from the stream's own words (those start at the
-                # copied offset), so lane order never matters.
-                vals = self._read_words(old).float().cpu().numpy()
-                n = len(new)
-                addr[at:at + n] = new
-                data[at:at + n] = vals
-                mask[at:at + n] = True
-                at += n
-            for s in streams:
-                seq, vec = s["seq"], np.asarray(s["vectors"], np.float32)
-                t = vec.shape[0]
-                self._ensure_capacity(seq, t)
-                idx = np.arange(self.lengths[seq], self.lengths[seq] + t)
-                addr[at:at + t] = self._addr(seq, idx)
-                data[at:at + t, :vec.shape[1]] = vec    # pad lanes stay zero
-                mask[at:at + t] = True
-                self.lengths[seq] += t
-                at += t
-            w_tiles.update(np.unique(addr[:at] // self.seq_tile).tolist())
-            return PortRequest(addr=_dev(addr), data=_dev(data, self.spec.dtype),
-                               mask=_dev(mask))
+            def _write_req(streams, cow=()):
+                addr = np.zeros(q, np.int32)
+                data = np.zeros((q, self.spec.word_width), np.float32)
+                mask = np.zeros(q, bool)
+                at = 0
+                for old, new in cow:
+                    # CoW copy lanes: the shared page's live words, gathered
+                    # host-side (it cannot be a ported read — the copy must
+                    # land in the same traversal), written to the fresh page.
+                    # Disjoint from the stream's own words (those start at
+                    # the copied offset), so lane order never matters.
+                    vals = self._to_host(self._read_words(old))
+                    n = len(new)
+                    addr[at:at + n] = new
+                    data[at:at + n] = vals
+                    mask[at:at + n] = True
+                    at += n
+                for s in streams:
+                    seq, vec = s["seq"], np.asarray(s["vectors"], np.float32)
+                    t = vec.shape[0]
+                    self._ensure_capacity(seq, t)
+                    idx = np.arange(self.lengths[seq], self.lengths[seq] + t)
+                    addr[at:at + t] = self._addr(seq, idx)
+                    data[at:at + t, :vec.shape[1]] = vec  # pad lanes stay 0
+                    mask[at:at + t] = True
+                    self.lengths[seq] += t
+                    at += t
+                w_tiles.update(np.unique(addr[:at] // self.seq_tile).tolist())
+                return PortRequest(addr=_dev(addr),
+                                   data=_dev(data, self.spec.dtype),
+                                   mask=_dev(mask))
 
-        if prefills:
-            reqs[BULK_FILL] = _write_req(prefills, cow_fill)
-        if appends:
-            reqs[APPEND] = _write_req(appends, cow_app)
-        if scrub:
-            addr = np.zeros(q, np.int32)
-            mask = np.zeros(q, bool)
-            words = (np.asarray(scrub)[:, None] * self.page_tokens
-                     + np.arange(self.page_tokens)[None, :]).reshape(-1)
-            addr[: len(words)] = words
-            mask[: len(words)] = True
-            w_tiles.update(np.unique(words // self.seq_tile).tolist())
-            reqs[SCRUB] = PortRequest(
-                addr=_dev(addr),
-                data=torch.zeros((q, self.spec.word_width),
-                                 dtype=self.spec.dtype, device=dev),
-                mask=_dev(mask))
-        slices = []
-        if reads:
-            addr = np.zeros(q, np.int32)
-            mask = np.zeros(q, bool)
-            at = 0
-            for s in reads:
-                pos = np.asarray(s["positions"])
-                addr[at:at + len(pos)] = self._addr(s["seq"], pos)
-                mask[at:at + len(pos)] = True
-                slices.append((at, at + len(pos)))
-                at += len(pos)
-            r_tiles.update(np.unique(addr[:at] // self.seq_tile).tolist())
-            reqs[ATTN_READ] = PortRequest(
-                addr=_dev(addr),
-                data=torch.zeros((q, self.spec.word_width),
-                                 dtype=self.spec.dtype, device=dev),
-                mask=_dev(mask))
+            if prefills:
+                reqs[BULK_FILL] = _write_req(prefills, cow_fill)
+            if appends:
+                reqs[APPEND] = _write_req(appends, cow_app)
+            if scrub:
+                addr = np.zeros(q, np.int32)
+                mask = np.zeros(q, bool)
+                words = (np.asarray(scrub)[:, None] * self.page_tokens
+                         + np.arange(self.page_tokens)[None, :]).reshape(-1)
+                addr[: len(words)] = words
+                mask[: len(words)] = True
+                w_tiles.update(np.unique(words // self.seq_tile).tolist())
+                reqs[SCRUB] = PortRequest(
+                    addr=_dev(addr),
+                    data=torch.zeros((q, self.spec.word_width),
+                                     dtype=self.spec.dtype, device=dev),
+                    mask=_dev(mask))
+            slices = []
+            if reads:
+                addr = np.zeros(q, np.int32)
+                mask = np.zeros(q, bool)
+                at = 0
+                for s in reads:
+                    pos = np.asarray(s["positions"])
+                    addr[at:at + len(pos)] = self._addr(s["seq"], pos)
+                    mask[at:at + len(pos)] = True
+                    slices.append((at, at + len(pos)))
+                    at += len(pos)
+                r_tiles.update(np.unique(addr[:at] // self.seq_tile).tolist())
+                reqs[ATTN_READ] = PortRequest(
+                    addr=_dev(addr),
+                    data=torch.zeros((q, self.spec.word_width),
+                                     dtype=self.spec.dtype, device=dev),
+                    mask=_dev(mask))
 
         cfg = PortConfig(enabled=(bool(appends), bool(reads), bool(prefills),
                                   bool(scrub)),
                          roles=_ROLES, priority=priority)
         self.mix_counts[cfg.describe()] = self.mix_counts.get(
             cfg.describe(), 0) + 1
-        if self.sharded:
-            self.storage, out = _sharded_pool_step(
-                self.spec_local, cfg, self.storage, tuple(reqs),
-                wps=self.words_per_shard, use_kernel=self.use_kernel)
-        else:
-            self.storage, out = _pool_step(self.spec, cfg, self.storage,
-                                           tuple(reqs),
-                                           use_kernel=self.use_kernel)
+        with span("pool.step"):
+            if self.sharded:
+                self.storage, out = _sharded_pool_step(
+                    self.spec_local, cfg, self.storage, tuple(reqs),
+                    wps=self.words_per_shard, use_kernel=self.use_kernel)
+            else:
+                self.storage, out = _pool_step(self.spec, cfg, self.storage,
+                                               tuple(reqs),
+                                               use_kernel=self.use_kernel)
         self.traversals += 1
         self.tile_writes += self._count_tiles(w_tiles,
                                               self.tile_writes_by_shard)

@@ -90,12 +90,17 @@ only — costs one tick). Latency is measured against this clock, so SLO
 numbers are deterministic on CI and directly reflect what the paper
 prices: a scheduler spending more traversals per macro-cycle burns more
 ticks for the same work. Requests carry arrival/admit/first-token/finish
-stamps in both ticks and macro-cycles (plus opt-in wall-clock
-timestamps); ``slot_contention_cycles`` counts cycles where a ready
-arrival waited on a full slot table and ``evict_pressure_admissions``
-counts admissions that only proceeded because a slot was freed that same
-cycle — the open-loop bench (``benchmarks/serve_bench.py``) turns these
-into TTFT/per-token percentiles, goodput, and queue-depth curves.
+stamps in both ticks and macro-cycles; ``slot_contention_cycles`` counts
+cycles where a ready arrival waited on a full slot table and
+``evict_pressure_admissions`` counts admissions that only proceeded
+because a slot was freed that same cycle — the open-loop bench
+(``benchmarks/serve_bench.py``) turns these into TTFT/per-token
+percentiles, goodput, and queue-depth curves.
+
+**Tracing**: each phase of a macro-cycle opens a span while a
+``torch.profiler`` records, and nothing otherwise (``repro_torch.spans``
+names them). ``staging_bytes`` counts the bytes every host<->device copy
+of the engine and its pool moved, by direction.
 
 **Data-parallel KV** (``mesh`` with a ``kv`` axis, ``launch.mesh.
 make_kv_mesh``): the pool's word axis — its sequence/page axis — shards
@@ -121,7 +126,6 @@ on one card or on the CPU.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -141,8 +145,12 @@ from repro_torch.serve import scheduler as sched_mod
 from repro_torch.serve.admission import (AdmissionQueue, OverloadController,
                                          prefix_admission_plan)
 from repro_torch.serve.scheduler import PhaseTxn, PortTxn
+from repro_torch.spans import span
 
 EVICT, PREFILL, DECODE, STATUS = 0, 1, 2, 3
+# the span each port phase runs under, by port index
+_PHASE_SPANS = ("engine.evict", "engine.prefill", "engine.decode",
+                "engine.status")
 
 # pool-port stream keyword for each physical port a scheduled transaction
 # can issue on (the engine's phase -> pool-port wiring)
@@ -159,8 +167,7 @@ class Request:
     slot: Optional[int] = None
     done: bool = False
     # open-loop latency stamps (virtual-clock ticks = pool traversals, plus
-    # the macro-cycle index; wall-clock seconds recorded alongside as the
-    # opt-in column — never the deterministic gate)
+    # the macro-cycle index)
     arrival_tick: float = 0.0
     arrival_cycle: int = 0
     # overload-safety state: an optional absolute admission deadline
@@ -180,9 +187,6 @@ class Request:
     first_token_cycle: Optional[int] = None
     finish_tick: Optional[int] = None
     finish_cycle: Optional[int] = None
-    t_submit: float = 0.0
-    t_first: Optional[float] = None
-    t_finish: Optional[float] = None
 
     @property
     def ttft_ticks(self) -> Optional[float]:
@@ -242,11 +246,13 @@ class _DoubleBuffer:
     when the engine runs on CUDA): the in-flight cycle's copy source is
     never overwritten by the next cycle's fill, and the hot loop stops
     paying a fresh allocation per cycle. ``get`` returns the zeroed buffer
-    as a numpy view to fill; :meth:`to_device` makes the device copy."""
+    as a numpy view to fill; :meth:`to_device` makes the device copy and
+    counts its bytes in ``upload_bytes``."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._bufs: dict = {}
+        self.upload_bytes = 0
 
     def get(self, key, shape) -> np.ndarray:
         slot = self._bufs.setdefault(key, [None, None, 0])
@@ -263,6 +269,7 @@ class _DoubleBuffer:
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A device copy of a filled buffer — never a view of it."""
+        self.upload_bytes += arr.nbytes
         t = torch.from_numpy(arr)
         if self.device.type == "cpu":
             return t.clone()
@@ -459,6 +466,10 @@ class MultiPortEngine:
         self.decode_tile_reads_by_dev = [0] * self.n_kv_shards
         self.steady_decode_tile_reads_by_dev = [0] * self.n_kv_shards
         self.prefill_tile_reads_by_dev = [0] * self.n_kv_shards
+        # bytes of the engine's own host<->device copies (the pinned stages
+        # count in _stage_bufs, the pool's in the pool): see staging_bytes
+        self.upload_bytes = 0           # pageable uploads
+        self.download_bytes = 0         # downloads
         self.port_log: list[tuple[int, ...]] = []
         # per-cycle schedule observability: which phases shared which pool
         # traversal (one tuple of phase-id tuples per cycle), how many
@@ -538,7 +549,7 @@ class MultiPortEngine:
             rid, list(prompt), max_new,
             arrival_tick=(self.vclock if arrival_tick is None
                           else arrival_tick),
-            arrival_cycle=self.cycles, t_submit=time.perf_counter())
+            arrival_cycle=self.cycles)
         ttl = self.default_ttl_ticks if ttl_ticks is None else ttl_ticks
         if ttl is not None:
             if ttl <= 0:
@@ -650,6 +661,30 @@ class MultiPortEngine:
                 "attached_tokens": p.prefix_attached_tokens,
                 "attached_pages": p.prefix_attached_pages,
                 "cow_copies": p.cow_copies, "cow_words": p.cow_words}
+
+    @property
+    def staging_bytes(self) -> dict:
+        """Bytes the engine and its pool have copied between the host and
+        the device, by kind: pageable uploads (lengths, tokens and indices,
+        the pool's port requests), the pinned double-buffered stages, and
+        every download (the gathers, a prefill chunk's caches and logits,
+        the retired words and tokens, the pool's copy-on-write and prefix
+        reads). Counted from the shapes handed across, on every device."""
+        p = self.pool
+        return {"h2d_pageable_bytes": self.upload_bytes + p.h2d_bytes,
+                "h2d_pinned_bytes": self._stage_bufs.upload_bytes,
+                "d2h_bytes": self.download_bytes + p.d2h_bytes}
+
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A counted pageable upload of a host array."""
+        self.upload_bytes += a.nbytes
+        return torch.from_numpy(a).to(device or self.device)
+
+    def _download(self, t: torch.Tensor) -> np.ndarray:
+        """A counted host copy of a device tensor."""
+        a = t.cpu().numpy()
+        self.download_bytes += a.nbytes
+        return a
 
     @property
     def coschedule_frac(self) -> float:
@@ -915,35 +950,35 @@ class MultiPortEngine:
                          - self._prefilling[s].consumed) for s in order}
         stage_s = self._stage_len(max(need_of.values()))
         live = min(stage_s, self.max_len)   # last bucket may pad past max_len
-        toks = np.zeros((nb, c), np.int32)
-        clen = np.zeros((nb,), np.int32)
-        offs = np.full((nb,), self._dead_row, np.int32)
-        stage_k = self._stage_bufs.get(("prefill", "k"),
-                                       (nl, nb, stage_s, hkv, hd))
-        stage_v = self._stage_bufs.get(("prefill", "v"),
-                                       (nl, nb, stage_s, hkv, hd))
-        for slot in order:
-            j = row_of[slot]
-            ps = self._prefilling[slot]
-            req = self.slot_req[slot]
-            t0 = ps.consumed
-            n = min(c, len(req.prompt) - t0)
-            toks[j, :n] = req.prompt[t0:t0 + n]
-            clen[j] = n
-            offs[j] = t0
-            stage_k[:, j, :live] = ps.stage_k[:, :live]
-            stage_v[:, j, :live] = ps.stage_v[:, :live]
+        with span("staging.prefill"):
+            toks = np.zeros((nb, c), np.int32)
+            clen = np.zeros((nb,), np.int32)
+            offs = np.full((nb,), self._dead_row, np.int32)
+            stage_k = self._stage_bufs.get(("prefill", "k"),
+                                           (nl, nb, stage_s, hkv, hd))
+            stage_v = self._stage_bufs.get(("prefill", "v"),
+                                           (nl, nb, stage_s, hkv, hd))
+            for slot in order:
+                j = row_of[slot]
+                ps = self._prefilling[slot]
+                req = self.slot_req[slot]
+                t0 = ps.consumed
+                n = min(c, len(req.prompt) - t0)
+                toks[j, :n] = req.prompt[t0:t0 + n]
+                clen[j] = n
+                offs[j] = t0
+                stage_k[:, j, :live] = ps.stage_k[:, :live]
+                stage_v[:, j, :live] = ps.stage_v[:, :live]
 
-        dev = self.device
-        state = {"len": torch.from_numpy(offs).to(dev),
-                 "cache_k": self._stage_bufs.to_device(stage_k),
-                 "cache_v": self._stage_bufs.to_device(stage_v)}
-        st, logits = self._prefill_chunk(
-            self.params, state, {"inputs": torch.from_numpy(toks).to(dev),
-                                 "chunk_len": torch.from_numpy(clen).to(dev)})
-        ck = st["cache_k"].cpu().numpy()
-        cv = st["cache_v"].cpu().numpy()
-        lg = logits.float().cpu().numpy()
+            state = {"len": self._upload(offs),
+                     "cache_k": self._stage_bufs.to_device(stage_k),
+                     "cache_v": self._stage_bufs.to_device(stage_v)}
+            st, logits = self._prefill_chunk(
+                self.params, state, {"inputs": self._upload(toks),
+                                     "chunk_len": self._upload(clen)})
+            ck = self._download(st["cache_k"])
+            cv = self._download(st["cache_v"])
+            lg = self._download(logits.float())
         # the chunk kernel masks dead tiles per sequence; the reference
         # reads the whole staged cache densely per chunk
         touched, _, per_dev, _ = self._tiles_touched(
@@ -1047,30 +1082,29 @@ class MultiPortEngine:
         need_of = {i: rows.shape[0] + 1                 # post-append lens
                    for i, rows in zip(active, gathered)}
         stage_s = self._stage_len(max(need_of.values(), default=1))
-        stage_k = self._stage_bufs.get(("decode", "k"),
-                                       (nl, nb, stage_s, hkv, hd))
-        stage_v = self._stage_bufs.get(("decode", "v"),
-                                       (nl, nb, stage_s, hkv, hd))
-        lens = np.full((nb,), self._dead_row, np.int32)
-        last_tokens = np.zeros((nb, 1), np.int32)
-        for i, rows in zip(active, gathered):
-            j = row_of[i]
-            t = rows.shape[0]
-            w = rows.float().cpu().numpy().reshape(t, nl, 2, hkv, hd)
-            stage_k[:, j, :t] = np.moveaxis(w[:, :, 0], 0, 1)
-            stage_v[:, j, :t] = np.moveaxis(w[:, :, 1], 0, 1)
-            lens[j] = t
-            r = self.slot_req[i]
-            seqs = r.generated or r.prompt
-            last_tokens[j, 0] = seqs[-1]
+        with span("staging.decode"):
+            stage_k = self._stage_bufs.get(("decode", "k"),
+                                           (nl, nb, stage_s, hkv, hd))
+            stage_v = self._stage_bufs.get(("decode", "v"),
+                                           (nl, nb, stage_s, hkv, hd))
+            lens = np.full((nb,), self._dead_row, np.int32)
+            last_tokens = np.zeros((nb, 1), np.int32)
+            for i, rows in zip(active, gathered):
+                j = row_of[i]
+                t = rows.shape[0]
+                w = self._download(rows.float()).reshape(t, nl, 2, hkv, hd)
+                stage_k[:, j, :t] = np.moveaxis(w[:, :, 0], 0, 1)
+                stage_v[:, j, :t] = np.moveaxis(w[:, :, 1], 0, 1)
+                lens[j] = t
+                r = self.slot_req[i]
+                seqs = r.generated or r.prompt
+                last_tokens[j, 0] = seqs[-1]
 
-        dev = self.device
-        state = {"len": torch.from_numpy(lens).to(dev),
-                 "cache_k": self._stage_bufs.to_device(stage_k),
-                 "cache_v": self._stage_bufs.to_device(stage_v)}
-        st, logits = self._decode(
-            self.params, state,
-            {"inputs": torch.from_numpy(last_tokens).to(dev)})
+            state = {"len": self._upload(lens),
+                     "cache_k": self._stage_bufs.to_device(stage_k),
+                     "cache_v": self._stage_bufs.to_device(stage_v)}
+            inputs = {"inputs": self._upload(last_tokens)}
+        st, logits = self._decode(self.params, state, inputs)
         inflight = _InFlight(cycle=self.cycles, vclock_end=self.vclock,
                              active=list(active), row_of=row_of, lens=lens,
                              state=st, logits=logits,
@@ -1087,33 +1121,33 @@ class MultiPortEngine:
         append, its token lands on the request, and finished requests get
         their latency stamps — at the virtual-clock time their cycle's
         traversals committed, not the later wall moment retirement ran."""
-        # a slot evicted (e.g. by a chaos cancel) and possibly reassigned
-        # while this dispatch was outstanding is skipped — folding the
-        # stale row back in would corrupt the new occupant
-        live = [i for i in inf.active if self.slot_req[i] is not None
-                and self.slot_req[i].rid == inf.rids.get(i)]
-        # the device-to-host copy of the new tokens and of each row's
-        # appended KV word is the retire point (the sync with the device)
-        rows = [inf.row_of[i] for i in live]
-        dev = inf.logits.device
-        js = torch.tensor(rows, dtype=torch.long, device=dev)
-        ps = torch.from_numpy(inf.lens[rows].astype(np.int64)).to(dev)
-        kw = inf.state["cache_k"][:, js, ps]                # [L, n, hkv, hd]
-        vw = inf.state["cache_v"][:, js, ps]
-        words = torch.stack([kw, vw], dim=1).permute(2, 0, 1, 3, 4)
-        words = words.flatten(1).float().cpu().numpy()
-        nxt = torch.argmax(inf.logits.float(), dim=-1).cpu().numpy()
-        now_wall = time.perf_counter()
-        for n, i in enumerate(live):
-            j = inf.row_of[i]
-            r = self.slot_req[i]
-            self._pending[i] = words[n]
-            r.generated.append(int(nxt[j]))
-            if len(r.generated) >= r.max_new:
-                r.done = True
-                r.finish_cycle = inf.cycle
-                r.finish_tick = inf.vclock_end
-                r.t_finish = now_wall
+        with span("engine.retire"):
+            # a slot evicted (e.g. by a chaos cancel) and possibly reassigned
+            # while this dispatch was outstanding is skipped — folding the
+            # stale row back in would corrupt the new occupant
+            live = [i for i in inf.active if self.slot_req[i] is not None
+                    and self.slot_req[i].rid == inf.rids.get(i)]
+            # the device-to-host copy of the new tokens and of each row's
+            # appended KV word is the retire point (the sync with the device)
+            rows = [inf.row_of[i] for i in live]
+            dev = inf.logits.device
+            with span("staging.retire"):
+                js = self._upload(np.asarray(rows, np.int64), dev)
+                ps = self._upload(inf.lens[rows].astype(np.int64), dev)
+                kw = inf.state["cache_k"][:, js, ps]        # [L, n, hkv, hd]
+                vw = inf.state["cache_v"][:, js, ps]
+                words = torch.stack([kw, vw], dim=1).permute(2, 0, 1, 3, 4)
+                words = self._download(words.flatten(1).float())
+                nxt = self._download(torch.argmax(inf.logits.float(), dim=-1))
+            for n, i in enumerate(live):
+                j = inf.row_of[i]
+                r = self.slot_req[i]
+                self._pending[i] = words[n]
+                r.generated.append(int(nxt[j]))
+                if len(r.generated) >= r.max_new:
+                    r.done = True
+                    r.finish_cycle = inf.cycle
+                    r.finish_tick = inf.vclock_end
 
     def _service_status(self) -> dict:
         return {"cycle": self.cycles,
@@ -1234,16 +1268,17 @@ class MultiPortEngine:
                      "appends": [], "active": [], "reads": []}
 
         def service(state, port):
-            if port == EVICT:
-                state["scrub"] = self._collect_evict()
-            elif port == PREFILL:
-                state["admits"] = self._collect_prefill()
-            elif port == DECODE:
-                if not stalled:
-                    (state["appends"], state["active"],
-                     state["reads"]) = self._collect_decode()
-            else:
-                state["status"] = self._service_status()
+            with span(_PHASE_SPANS[port]):
+                if port == EVICT:
+                    state["scrub"] = self._collect_evict()
+                elif port == PREFILL:
+                    state["admits"] = self._collect_prefill()
+                elif port == DECODE:
+                    if not stalled:
+                        (state["appends"], state["active"],
+                         state["reads"]) = self._collect_decode()
+                else:
+                    state["status"] = self._service_status()
             return state
 
         walk_cfg = PortConfig(
@@ -1259,11 +1294,13 @@ class MultiPortEngine:
         # footprints picks the per-traversal port mix, then the plan
         # commits against the physical pool in program order
         t0 = self.pool.traversals
-        phases = self._build_phases(scrub, admits, appends, reads)
-        plan = sched_mod.plan(phases, mode=self.schedule_mode,
-                              max_ports=self.max_ports,
-                              split_roles=self._split_roles)
-        gathered = self._commit(plan)
+        with span("engine.schedule"):
+            phases = self._build_phases(scrub, admits, appends, reads)
+            plan = sched_mod.plan(phases, mode=self.schedule_mode,
+                                  max_ports=self.max_ports,
+                                  split_roles=self._split_roles)
+        with span("engine.commit"):
+            gathered = self._commit(plan)
         self.schedule_log.append(
             tuple(t.phase_ids() for t in plan.traversals))
         if len({ph.phase for ph in phases}) > 1:
@@ -1292,23 +1329,22 @@ class MultiPortEngine:
         # latency stamps for this cycle's prefill-produced tokens: a first
         # token counts as served once its cycle's traversals COMMITTED, at
         # the post-commit virtual-clock reading
-        now_tick, now_wall = self.vclock, time.perf_counter()
+        now_tick = self.vclock
         for r in self._token_events:
             r.first_token_cycle = self.cycles
             r.first_token_tick = now_tick
-            r.t_first = now_wall
             if r.done:
                 r.finish_cycle = self.cycles
                 r.finish_tick = now_tick
-                r.t_finish = now_wall
         if admits:
             self.prefill_steps += 1
             self.prefill_traversals += dt
         if active:
             self.decode_steps += 1
             self.decode_traversals += dt
-            tiles, bound, per_dev, crit, inflight = self._dispatch_decode(
-                active, gathered)
+            with span("engine.dispatch"):
+                tiles, bound, per_dev, crit, inflight = self._dispatch_decode(
+                    active, gathered)
             self._inflight = inflight
             self.decode_tile_reads += tiles
             self.decode_critical_tiles += crit
